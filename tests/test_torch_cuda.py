@@ -13,6 +13,7 @@ import torch
 from tpu2dgs_torch.eval import synthetic
 from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.raster import api, binning, cuda_backend, preprocess, select_kernel
+from tpu2dgs_torch.train import loop
 
 pytestmark = pytest.mark.cuda
 
@@ -83,8 +84,9 @@ def _scene(dev, w=256, h=96, n=3000):
     return cam, scene, api.RasterSettings(w, h, bin_capacity=1024, tile_capacity=384)
 
 
-def test_blend_kernel_matches_plain(cuda):
-    cam, scene, settings = _scene(cuda)
+def _lists(dev):
+    """Per-tile record lists of the small scene: (rec3, counts, nty)."""
+    cam, scene, settings = _scene(dev)
     splats = preprocess.preprocess(*scene, cam, settings.width, settings.height, 3)
     comp = binning.compact_visible(splats, scene[0].shape[0])
     rec = cuda_backend.pack_records(splats)
@@ -92,7 +94,11 @@ def test_blend_kernel_matches_plain(cuda):
     rec3, raw, _, _ = cuda_backend._bin_records(
         comp.x0, comp.x1, comp.y0, comp.y1, comp.num_visible, rec, nbx, nty, 1024, 384,
         ids=comp.perm)
-    counts = torch.clamp(raw, max=rec3.shape[2]).to(torch.int32)
+    return rec3, torch.clamp(raw, max=rec3.shape[2]).to(torch.int32), nty
+
+
+def test_blend_kernel_matches_plain(cuda):
+    rec3, counts, nty = _lists(cuda)
     got = cuda_backend.blend_tiles(rec3, counts, nty)
     ref = cuda_backend.blend_tiles_plain(rec3, counts, nty)
     torch.cuda.synchronize()
@@ -111,3 +117,55 @@ def test_render_kernels_match_plain(cuda):
               "depth_median"]:
         assert float((out[k] - ref[k]).abs().max()) <= 2e-4, k
     assert torch.equal(out["radii"], ref["radii"])
+
+
+@pytest.mark.parametrize("room", ["room", "overflow"])
+def test_backward_kernel_matches_plain(cuda, room):
+    """Packed rows within 1e-3 of each row's largest value (the sum over a
+    tile's pixels runs in another order), the slot column and the dropped
+    groups exactly, the scattered gradient within 1e-4 of its largest."""
+    rec3, counts, nty = _lists(cuda)
+    out = cuda_backend.blend_tiles(rec3, counts, nty)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    dout = torch.randn(out.shape, device=cuda, generator=gen)
+    grp = min(cuda_backend.GROUP, rec3.shape[2])
+    eff = cuda_backend._effective_counts(counts, out, grp)
+    off = cuda_backend._packed_offsets(counts, out, grp)
+    demand = int(eff.sum())
+    pack_cap = demand + grp if room == "room" else max(grp, (demand // 2) // grp * grp)
+    assert (pack_cap < demand) == (room == "overflow")
+    before = native.LAUNCHES["blend_tiles_backward"]
+    got = cuda_backend.blend_tiles_backward(rec3, counts, off, out, dout, nty, pack_cap)
+    ref = cuda_backend.blend_tiles_backward_plain(rec3, counts, off, out, dout, nty, pack_cap)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["blend_tiles_backward"] == before + 1
+    n = min(demand, pack_cap)
+    assert torch.equal(got[:n, 19], ref[:n, 19])
+    scale = ref[:n, :19].abs().amax(dim=1).clamp(min=1e-30)
+    assert float(((got[:n, :19] - ref[:n, :19]).abs().amax(dim=1) / scale).max()) <= 1e-3
+    k = 3000
+    gs = cuda_backend.scatter_packed(got, eff, k)
+    rs = cuda_backend.scatter_packed(ref, eff, k)
+    assert float((gs - rs).abs().max()) <= 1e-4 * float(rs.abs().max())
+    with pytest.raises(ValueError):
+        cuda_backend.blend_tiles_backward(rec3, counts, off, out, dout[:, :8], nty, pack_cap)
+
+
+def test_training_step_launch_counts(cuda):
+    """One training step: the select kernel three times, each blend kernel
+    once; a render under no_grad: no backward launch."""
+    w, h, n = 256, 96, 3000
+    cams, model = synthetic.make_shell_training_set(w, h, n, views=2, device=cuda,
+                                                    bin_capacity=2048, tile_capacity=1024)
+    trainer = loop.Trainer(model, cams, w, h, spatial_lr_scale=1.0, scene_extent=1.0,
+                           train_cfg=loop.TrainConfig(normal_from_iter=0, dist_from_iter=0,
+                                                      lambda_dist=100.0),
+                           raster_kwargs=dict(bin_capacity=2048, tile_capacity=1024))
+    native.LAUNCHES.clear()
+    trainer.train(num_iters=2)
+    torch.cuda.synchronize()
+    assert dict(native.LAUNCHES) == {"select_values": 6, "blend_tiles": 2,
+                                     "blend_tiles_backward": 2}
+    trainer.render_view(cams[0])
+    assert native.LAUNCHES["blend_tiles_backward"] == 2 and native.LAUNCHES["blend_tiles"] == 3
+    assert all(bool(torch.isfinite(p).all()) for p in trainer.model.params)

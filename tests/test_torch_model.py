@@ -80,10 +80,11 @@ def test_convert_round_trip_and_render_matches_jax():
                     p.xyz, jnp.exp(p.scaling), p.rotation, jax.nn.sigmoid(p.opacity[:, 0]),
                     jsplats.features(p), jnp.asarray(bg), live=jm.live)
     q = tm.params
-    out_t = tapi.render(port_cam(w, h), tapi.RasterSettings(w, h, **caps),
-                        q.xyz, torch.exp(q.scaling), q.rotation,
-                        torch.sigmoid(q.opacity[:, 0]), tsplats.features(q),
-                        to_torch(bg), live=tm.live, device="cpu")
+    with torch.no_grad():  # serving: render is differentiable, the parameters require grad
+        out_t = tapi.render(port_cam(w, h), tapi.RasterSettings(w, h, **caps),
+                            q.xyz, torch.exp(q.scaling), q.rotation,
+                            torch.sigmoid(q.opacity[:, 0]), tsplats.features(q),
+                            to_torch(bg), live=tm.live, device="cpu")
     for k in ["render", "rend_alpha", "surf_depth", "rend_dist"]:
         np.testing.assert_allclose(out_t[k].numpy(), np.asarray(out_j[k]),
                                    rtol=2e-4, atol=2e-4, err_msg=k)
@@ -96,9 +97,10 @@ def test_empty_model_renders_background():
     w, h = 64, 32
     bg = torch.tensor([0.2, 0.4, 0.6])
     p = m.params
-    out = tapi.render(port_cam(w, h), tapi.RasterSettings(w, h), p.xyz,
-                      torch.exp(p.scaling), p.rotation, torch.sigmoid(p.opacity[:, 0]),
-                      tsplats.features(p), bg, live=m.live, device="cpu")
+    with torch.no_grad():
+        out = tapi.render(port_cam(w, h), tapi.RasterSettings(w, h), p.xyz,
+                          torch.exp(p.scaling), p.rotation, torch.sigmoid(p.opacity[:, 0]),
+                          tsplats.features(p), bg, live=m.live, device="cpu")
     np.testing.assert_array_equal(out["render"].numpy(),
                                   np.broadcast_to(bg.numpy()[:, None, None], (3, h, w)))
     assert float(out["rend_alpha"].abs().max()) == 0.0

@@ -7,9 +7,12 @@ counterpart is found under the same path:
 
   core/      camera models, spherical harmonics, quaternion/surfel transforms
   raster/    preprocess, depth compaction, the select kernel (binning) and
-             the CUDA blend backend, the render() API
-  model/     padded splat parameter store, PLY codec, weight conversion
-  eval/      synthetic bench scenes
+             the CUDA blend backend (forward and backward), the render() API
+  model/     padded splat parameter store, PLY codec, KNN scale init, Adam,
+             densification, conversion of weights and training state
+  train/     losses, the training step and the Trainer
+  eval/      synthetic bench scenes and a training set, the serve and
+             train profiles
   native/    nvcc build of csrc/*.cu into shared libraries bound with ctypes
   csrc/      the CUDA C++ kernels
 

@@ -12,8 +12,14 @@ import torch
 
 
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """L2-normalize along `dim` (F.normalize semantics: clamped norm)."""
-    n = torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True))
+    """L2-normalize along `dim` (F.normalize semantics: clamped norm).
+
+    The double where keeps sqrt's derivative off a zero vector, whose
+    gradient is then 0 and not NaN: a dead row of the padded store sits at
+    the origin, which may be the camera's center."""
+    n2 = torch.sum(v * v, dim=dim, keepdim=True)
+    nonzero = n2 > 0.0
+    n = torch.where(nonzero, torch.sqrt(torch.where(nonzero, n2, 1.0)), 0.0)
     return v / torch.clamp(n, min=eps)
 
 

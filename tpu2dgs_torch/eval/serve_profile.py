@@ -59,11 +59,12 @@ def staged_render(cam, settings, scene, bg, live):
         comp.x0, comp.x1, comp.y0, comp.y1, comp.num_visible, rec, nbx, nty, bin_cap,
         cap, col_cap=settings.col_capacity, ids=comp.perm))
     image, allmap = stage("blend_untile", lambda: cuda_backend.blend_binned(
-        rec3, raw, settings, bg, nbx, nty, {}))
+        rec, rec3, raw, settings, bg, nbx, nty, {}))
     stage("decode", lambda: api.decode_outputs(cam, settings, splats, image, allmap))
     return times
 
 
+@torch.no_grad()
 def run(name, cams, scene, live, settings):
     bg = torch.zeros(3, device=scene[0].device)
     for cam in cams[:1]:  # warm up: kernel build, allocator, cuBLAS/cuSOLVER handles

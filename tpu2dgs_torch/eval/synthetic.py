@@ -2,7 +2,10 @@
 
 The same numpy generation from the same seed as the JAX package, so both
 packages rasterize exactly the same workload; the results move to
-`device` (default CUDA) as float32 tensors.
+`device` (default CUDA) as float32 tensors. `make_shell_training_set`
+turns the shell scene into a training problem: orbit cameras whose ground
+truth the port's own forward path renders, and a perturbed copy of the
+scene to start from.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 from tpu2dgs_torch import default_device
 from tpu2dgs_torch.core import cameras, transforms
 from tpu2dgs_torch.model import splats as splats_lib
+from tpu2dgs_torch.raster import api
 
 
 def _tensors(arrays, dev):
@@ -115,3 +119,41 @@ def scene_model(scene) -> splats_lib.SplatModel:
         rotation=rotation, opacity=transforms.inverse_sigmoid(opacity)[:, None])
     live = torch.ones(xyz.shape[0], dtype=torch.bool, device=xyz.device)
     return splats_lib.SplatModel(params, live)
+
+
+def make_shell_training_set(w: int = 800, h: int = 800, n: int = 1 << 17, views: int = 4,
+                            seed: int = 0, device=None, **raster_kwargs):
+    """A training problem on the shell scene. Returns (cameras, model):
+
+      * `views` orbit cameras, evenly spaced from the scene's own pose,
+        each with its ground-truth image (3,H,W) rendered from the exact
+        scene by raster.api.render under no_grad with `raster_kwargs`;
+      * the scene perturbed from `seed` as a parameter store: positions
+        jittered by a fifth of the mean disk radius, log-scales by 0.2,
+        logit opacities lowered by 1 and jittered, colours (SH band 0) by
+        0.4, the higher SH bands zeroed."""
+    dev = default_device(device)
+    _, scene = make_shell_scene(w, h, n, seed=seed, device=dev)
+    cams = [shell_camera(2 * np.pi * (0.13 + k / views), w, h) for k in range(views)]
+    settings = api.RasterSettings(w, h, **raster_kwargs)
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        for k, cam in enumerate(cams):
+            cam.uid, cam.image_name = k, f"shell{k}"
+            out = api.render(cam.arrays(dev), settings, *scene, bg, device=dev)
+            cam.image = out["render"].cpu().numpy()
+
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def noise(like, std):
+        return (torch.randn(like.shape, generator=gen) * std).to(dev)
+
+    model = scene_model(scene)
+    mean_r = float(np.sqrt(4 * 0.8 ** 2 / n))
+    with torch.no_grad():
+        model.xyz += noise(model.xyz, 0.2 * mean_r)
+        model.scaling += noise(model.scaling, 0.2)
+        model.opacity += noise(model.opacity, 0.3) - 1.0
+        model.features_dc += noise(model.features_dc, 0.4)
+        model.features_rest.zero_()
+    return cams, model

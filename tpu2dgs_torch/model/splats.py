@@ -9,9 +9,9 @@ semantics match the reference, and PLY files are bit-compatible:
   rotation (C,4) raw wxyz quaternion           (activation: normalize)
   opacity (C,1) logit                          (activation: sigmoid)
 
-`SplatModel` is an nn.Module: the six parameters plus the `live` buffer.
-The densification statistics of the JAX model join it with the training
-slice, as does `create_from_pcd` (it needs the KNN scale init).
+`SplatModel` is an nn.Module: the six parameters, the `live` buffer and
+the densification statistics (`max_radii2d`, `grad_accum`, `denom`) as
+buffers.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ from torch import nn
 
 from tpu2dgs_torch import default_device
 from tpu2dgs_torch.core import sh as sh_lib
+from tpu2dgs_torch.core.transforms import inverse_sigmoid
+from tpu2dgs_torch.model.knn import mean_dist2_to_3nn
+
+INIT_OPACITY = 0.1  # the reference's initial opacity
 
 
 class SplatParams(NamedTuple):
@@ -38,14 +42,26 @@ class SplatParams(NamedTuple):
     opacity: torch.Tensor        # (C,1) logit
 
 
-class SplatModel(nn.Module):
-    """Parameters (one nn.Parameter per SplatParams field) + live mask."""
+STATS = ("max_radii2d", "grad_accum", "denom")
 
-    def __init__(self, params: SplatParams, live: torch.Tensor):
+
+class SplatModel(nn.Module):
+    """Parameters (one nn.Parameter per SplatParams field), the live mask
+    and the densification statistics, each (C,) float32: the largest
+    screen radius seen, the summed norm of the screen-space gradient, and
+    the number of steps the splat was visible. Statistics not given start
+    at zero."""
+
+    def __init__(self, params: SplatParams, live: torch.Tensor, max_radii2d=None,
+                 grad_accum=None, denom=None):
         super().__init__()
         for name, value in params._asdict().items():
-            setattr(self, name, nn.Parameter(value))
+            setattr(self, name, nn.Parameter(value.detach()))
         self.register_buffer("live", live)
+        for name, value in zip(STATS, (max_radii2d, grad_accum, denom)):
+            if value is None:
+                value = torch.zeros(live.shape, dtype=torch.float32, device=live.device)
+            self.register_buffer(name, value)
 
     @property
     def params(self) -> SplatParams:
@@ -87,6 +103,47 @@ def empty_model(capacity: int, sh_degree: int = 3, device=None) -> SplatModel:
         opacity=z(capacity, 1),
     )
     return SplatModel(params, torch.zeros((capacity,), dtype=torch.bool, device=dev))
+
+
+@torch.no_grad()
+def create_from_pcd(points: np.ndarray, colors: np.ndarray, sh_degree: int = 3,
+                    capacity: int | None = None, device=None) -> SplatModel:
+    """A model from a point cloud, as the reference's create_from_pcd:
+    isotropic log-scale from the mean distance to the 3 nearest
+    neighbours, identity rotations, opacity 0.1, DC colour from RGB.
+    points (N,3), colors (N,3) RGB in [0,1]."""
+    n = points.shape[0]
+    model = empty_model(capacity or round_capacity(n), sh_degree, device=device)
+    dev = model.xyz.device
+    pts = torch.from_numpy(np.asarray(points, np.float32)).to(dev)
+    rgb = torch.from_numpy(np.asarray(colors, np.float32)).to(dev)
+    dist2 = torch.clamp(mean_dist2_to_3nn(pts), min=1e-7)
+    model.xyz[:n] = pts
+    model.features_dc[:n, 0, :] = sh_lib.rgb_to_sh(rgb)
+    model.scaling[:n] = torch.log(torch.sqrt(dist2))[:, None]
+    model.opacity[:n] = float(inverse_sigmoid(torch.tensor(INIT_OPACITY)))
+    model.live[:n] = True
+    return model
+
+
+@torch.no_grad()
+def grow_capacity(model: SplatModel, new_capacity: int, segments: int = 1) -> SplatModel:
+    """A new model with every per-splat tensor padded to `new_capacity`:
+    dead rows with identity rotations at the end."""
+    if segments != 1:
+        raise NotImplementedError("segmented capacity comes with the multi-device slice")
+    c = model.capacity
+    if new_capacity < c:
+        raise ValueError(f"cannot shrink capacity {c} to {new_capacity}")
+    if new_capacity == c:
+        return model
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((new_capacity - c, *a.shape[1:]))])
+
+    params = SplatParams(*(pad(a.detach()) for a in model.params))
+    params.rotation[c:, 0] = 1.0
+    return SplatModel(params, pad(model.live), *(pad(getattr(model, k)) for k in STATS))
 
 
 # ---------------------------------------------------------------------------

@@ -35,13 +35,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
-SOURCES = ("select_values", "blend_forward")
+SOURCES = ("select_values", "blend_forward", "blend_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
-# Kernel launches by wrapper name ("select_values", "blend_tiles"), counted
+# Kernel launches by wrapper name ("select_values", "blend_tiles",
+# "blend_tiles_backward"), counted
 # by launch(); a caller that wants the launches of one run clears it first.
 LAUNCHES: Counter = Counter()
 

@@ -7,10 +7,14 @@ depth_median, radii, visibility_filter, mean2d, plus the backend's
 overflow counters) with CHW image layouts and the same allmap decoding.
 
 Backends: "cuda" (the counterpart of the JAX "pallas" backend: the select
-and forward-blend kernels). "oracle" and "tiled" are named for parity and
-raise NotImplementedError until they are ported, as do `mesh=` and
-`shard_splats=`. Rendering runs under torch.no_grad(): the backward kernel
-comes with the training slice.
+kernel and the forward and backward blend kernels). "oracle" and "tiled"
+are named for parity and raise NotImplementedError until they are ported,
+as do `mesh=` and `shard_splats=`.
+
+`render` is differentiable with respect to xyz, scaling, rotation,
+opacity, features and `mean2d_offset`, whichever of them require grad. A
+caller that only serves wraps the call in torch.no_grad(): then nothing
+is kept for a backward pass.
 """
 
 from __future__ import annotations
@@ -55,7 +59,6 @@ class RasterSettings:
             raise ValueError(f"unknown raster backend {self.backend!r}")
 
 
-@torch.no_grad()
 def render(
     cam: CameraArrays,
     settings: RasterSettings,
@@ -74,6 +77,7 @@ def render(
     compute_cov3d_python: bool = False,
     axes_override=None,
     device=None,
+    plain: bool = False,
 ):
     """Render one view. Returns the reference-contract dict.
 
@@ -81,7 +85,9 @@ def render(
     unless device="cpu" is passed). `convert_shs_python` /
     `compute_cov3d_python` evaluate SH->RGB and the splat tangent axes
     outside preprocess and feed them back through `override_color` /
-    `axes_override`, as the reference PipelineParams do."""
+    `axes_override`, as the reference PipelineParams do. `plain=True`
+    runs the kernels' plain PyTorch versions, forward and backward, on
+    any device: what the kernels are held against."""
     if mesh is not None or shard_splats:
         raise NotImplementedError("multi-device rendering is not ported yet")
     if settings.backend != "cuda":
@@ -105,8 +111,7 @@ def render(
     if convert_shs_python and override_color is None:
         dirs = transforms.normalize(xyz - cam.cam_center[None, :])
         shs = torch.swapaxes(features, -1, -2)
-        override_color = torch.clamp(
-            sh_lib.eval_sh(settings.sh_degree, shs, dirs) + 0.5, min=0.0)
+        override_color = pre.clamp_color(sh_lib.eval_sh(settings.sh_degree, shs, dirs) + 0.5)
 
     w, h = settings.width, settings.height
     splats = pre.preprocess(
@@ -114,7 +119,7 @@ def render(
         mean2d_offset=mean2d_offset, scale_modifier=settings.scale_modifier,
         live=live, override_color=override_color, axes_override=axes_override)
 
-    image, allmap = rasterize_cuda(splats, settings, bg_color)
+    image, allmap = rasterize_cuda(splats, settings, bg_color, plain=plain)
     aux = {k: allmap.pop(k) for k in list(allmap) if k.startswith("_aux_")}
     out = decode_outputs(cam, settings, splats, image, allmap)
     for k, v in aux.items():

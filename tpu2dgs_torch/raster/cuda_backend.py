@@ -1,4 +1,4 @@
-"""Fused CUDA rasterizer, forward half (port of
+"""Fused CUDA rasterizer, forward and backward (port of
 tpu2dgs/raster/pallas_backend.py).
 
 The pipeline of the JAX backend, kept contract for contract:
@@ -11,12 +11,18 @@ The pipeline of the JAX backend, kept contract for contract:
   * `blend_tiles`: the forward blend kernel (csrc/blend_forward.cu,
     replacing the TPU `_fwd_kernel`) on a CUDA tensor, its plain PyTorch
     version `blend_tiles_plain` on a CPU tensor.
+  * `blend_tiles_backward`: the backward blend kernel
+    (csrc/blend_backward.cu, replacing the TPU `_bwd_kernel`) on CUDA
+    tensors, `blend_tiles_backward_plain` on CPU tensors: one packed
+    20-float gradient row per walked list entry.
+  * `BlendTiles`: the autograd function joining the two (the JAX
+    backend's custom_vjp `blend_tiles`): the packed rows are scattered
+    onto the rows of the differentiable record array `rec_c`.
   * `blend_binned`: untile into image planes plus the `_aux_*` counters.
 
 Capacities round exactly as the JAX backend rounds them (`_round128`,
-`_round_group` with GROUP = 256), so per-tile lists, counts and overflow
-counters agree even when capacities overflow. This slice renders only:
-there is no backward kernel yet, and api.render runs under torch.no_grad().
+`_round_group` with GROUP = 256), so per-tile lists, counts, overflow
+counters and the gradient rows dropped under overflow agree.
 
 Record layout (REC = 24 floats):
   0:9   c1, c2, c3        (intersection constants)
@@ -61,6 +67,7 @@ OUT_CH = 16
 BY = 16   # tile pixel rows
 BX = 128  # tile pixel columns
 CHUNK = 64   # records per early-exit check (the kernel's staging chunk)
+OUTREC = 20  # packed gradient row: d(record channels 0:19) + the record row id
 # The JAX backend's record-staging group: capk and the packed gradient
 # capacity round to whole groups of it, which changes results under
 # overflow, so the port keeps the value.
@@ -218,6 +225,200 @@ def _effective_counts(counts, out, group):
     return torch.minimum(-(-counts.to(torch.int64) // group) * group, walked)
 
 
+def _packed_offsets(counts, out, group):
+    """Global packed row cursor per tile: the exclusive prefix sum of the
+    group-aligned effective counts in column-major tile order. (T,) int32."""
+    cc = _effective_counts(counts, out, group)
+    return (torch.cumsum(cc, dim=0) - cc).to(torch.int32)
+
+
+def blend_tiles_backward_plain(rec3, counts, off, out, dout, nty: int,
+                               pack_cap: int) -> torch.Tensor:
+    """Plain PyTorch backward blend: all tiles walk their lists back to
+    front in lockstep. Returns the packed rows (pack_cap, OUTREC).
+
+    Tile t's row for list entry j lies at packed row off[t] + j. Every row
+    of a tile's reserved region (its group-aligned effective count) is
+    written, zeros where the walk produced nothing, unless the row's group
+    of min(GROUP, capk) rows would end past pack_cap: such a group is
+    dropped whole. Rows no tile reserved are zero here (the kernel leaves
+    them unwritten; `BlendTiles` masks them). Channels 0:19 are the
+    gradients of record channels 0:19 summed over the tile's pixels;
+    channel 19 is record channel 21, the row of the record array."""
+    t, _, capk = rec3.shape
+    dev = rec3.device
+    group = min(GROUP, capk)
+    px, py = _tile_planes(t, nty, dev)
+    counts = torch.clamp(counts.to(torch.int64), max=capk)
+    off = off.to(torch.int64)
+
+    t_final, m1_final, m2_final, last = out[:, 3], out[:, 10], out[:, 11], out[:, 12]
+    d_rgb = (dout[:, 0], dout[:, 1], dout[:, 2])
+    d_dep = dout[:, 4]
+    d_nrm = (dout[:, 5], dout[:, 6], dout[:, 7])
+    d_med, d_dist = dout[:, 8], dout[:, 9]
+    dt_term = dout[:, 3] * t_final
+
+    max_last = torch.amax(last, dim=(1, 2)).to(torch.int64)
+    walked_to = torch.where(max_last < 0, 0, (max_last // CHUNK + 1) * CHUNK)  # (T,)
+    eff = _effective_counts(counts, out, group)
+    n_walk = int(walked_to.max()) if t else 0
+    n_rows = int(eff.max()) if t else 0
+
+    zeros = torch.zeros((t, BY, BX), dtype=torch.float32, device=dev)
+    T_cur = t_final.clone()
+    acc_w, s_w, s_wm, acc_a, s_wm2 = (zeros.clone() for _ in range(5))
+    med_done = torch.zeros((t, BY, BX), dtype=torch.bool, device=dev)
+    rows = torch.zeros((t, n_rows, OUTREC), dtype=torch.float32, device=dev)
+    dm_scale = DIST_FAR * DIST_NEAR / (DIST_FAR - DIST_NEAR)
+
+    for j in range(n_walk - 1, -1, -1):
+        r = [rec3[:, k, j, None, None] for k in range(21)]
+        alpha, depthp, hit, G, su, sv, inv, nc, u3 = _splat_response(r, px, py)
+        in_list = j < counts
+        blended = hit & (float(j) <= last) & in_list[:, None, None]
+        a = torch.where(blended, alpha, 0.0)
+        t_before = torch.where(blended, T_cur / (1.0 - a), T_cur)
+        w = a * t_before
+
+        m = _map_depth(depthp)
+        wm = w * m
+        wm2 = wm * m
+        m1b = m1_final - s_wm - wm
+        m2b = m2_final - s_wm2 - wm2
+        a_before = 1.0 - t_before
+        mm = m * m
+        two_m = 2.0 * m
+
+        dldw = (d_rgb[0] * r[12] + d_rgb[1] * r[13] + d_rgb[2] * r[14]
+                + d_dep * depthp
+                + d_nrm[0] * r[15] + d_nrm[1] * r[16] + d_nrm[2] * r[17]
+                + d_dist * (mm * a_before + m2b - two_m * m1b + mm * s_w - two_m * s_wm))
+
+        # median: first blended record, back to front, with T before it > 0.5
+        is_med = blended & (t_before > MEDIAN_T) & ~med_done
+        med_done = med_done | is_med
+
+        d_m = d_dist * (w * (two_m * a_before - 2.0 * m1b) + w * (two_m * s_w - 2.0 * s_wm))
+        dm_dd = dm_scale / (torch.clamp(depthp, min=1e-6) ** 2)
+        d_d = d_dep * w + d_m * dm_dd + torch.where(is_med, d_med, 0.0)
+
+        one_minus = torch.clamp(1.0 - a, min=1.0 - ALPHA_CLAMP)
+        d_a = dldw * t_before + (acc_a - acc_w - dt_term) / one_minus
+
+        # Suffix sums take blended pixels only (elsewhere w = 0 and the
+        # terms vanish, but a non-finite miss must not poison the carry).
+        acc_w = torch.where(blended, acc_w + dldw * w, acc_w)
+        acc_a = torch.where(blended, acc_a + d_dist * w * m * m * t_before, acc_a)
+        s_w = s_w + w
+        s_wm = torch.where(blended, s_wm + wm, s_wm)
+        s_wm2 = torch.where(blended, s_wm2 + wm2, s_wm2)
+        T_cur = t_before
+
+        d_op = torch.where(nc, G * d_a, 0.0)
+        d_rho = torch.where(nc, -0.5 * r[18] * G * d_a, 0.0)
+        d_rho3d = torch.where(u3, d_rho, 0.0)  # low-pass branch: no gradient
+        d_su = 2.0 * su * d_rho3d + r[9] * d_d
+        d_sv = 2.0 * sv * d_rho3d + r[10] * d_d
+        d_pu = d_su * inv
+        d_pv = d_sv * inv
+        d_pw = -(su * d_su + sv * d_sv) * inv
+        planes = [px * d_pu, px * d_pv, px * d_pw, py * d_pu, py * d_pv, py * d_pw,
+                  d_pu, d_pv, d_pw, su * d_d, sv * d_d, d_d,
+                  w * d_rgb[0], w * d_rgb[1], w * d_rgb[2],
+                  w * d_nrm[0], w * d_nrm[1], w * d_nrm[2], d_op]
+        grad = torch.where(blended[:, None], torch.stack(planes, dim=1), 0.0)
+        rows[:, j, :OUTREC - 1] = grad.sum(dim=(2, 3))
+        rows[:, j, OUTREC - 1] = torch.where(in_list & (j < walked_to), rec3[:, 21, j], 0.0)
+
+    dpack = torch.zeros((pack_cap + 1, OUTREC), dtype=torch.float32, device=dev)
+    jj = torch.arange(n_rows, device=dev)[None, :]
+    kept = (jj < eff[:, None]) & (off[:, None] + (jj // group + 1) * group <= pack_cap)
+    dest = torch.where(kept, off[:, None] + jj, pack_cap)  # pack_cap = the dump row
+    dpack.index_copy_(0, dest.reshape(-1), rows.reshape(-1, OUTREC))
+    return dpack[:pack_cap]
+
+
+_BLEND_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def blend_tiles_backward(rec3, counts, off, out, dout, nty: int,
+                         pack_cap: int) -> torch.Tensor:
+    """Packed gradient rows (pack_cap, OUTREC) of the forward blend.
+
+    CPU tensors run `blend_tiles_backward_plain`; CUDA tensors launch the
+    kernel (csrc/blend_backward.cu) or raise. The kernel writes only the
+    rows that tiles reserved and that fit: the others are uninitialized."""
+    dev = rec3.device
+    if dev.type == "cpu":
+        return blend_tiles_backward_plain(rec3, counts, off, out, dout, nty, pack_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"blend_tiles_backward runs on cpu or cuda, not {dev}")
+    if rec3.dtype != torch.float32 or rec3.dim() != 3 or not rec3.is_contiguous():
+        raise ValueError("rec3 must be a contiguous (T, NCH, capk) float32 tensor")
+    t, nch, capk = rec3.shape
+    group = min(GROUP, capk)
+    if nch < 22 or capk % group or group % CHUNK or pack_cap % group:
+        raise ValueError(f"rec3 {tuple(rec3.shape)}, pack_cap {pack_cap}: the backward "
+                         "blend reads 22 channels and walks whole staging groups")
+    for name, a in (("counts", counts), ("off", off)):
+        if a.dtype != torch.int32 or a.shape != (t,) or a.device != dev or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (T,) int32 tensor on rec3's device")
+    for name, a in (("out", out), ("dout", dout)):
+        if (a.dtype != torch.float32 or a.shape != (t, OUT_CH, BY, BX) or a.device != dev
+                or not a.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (T, {OUT_CH}, {BY}, {BX}) float32 "
+                             "tensor on rec3's device")
+    dpack = torch.empty((pack_cap, OUTREC), dtype=torch.float32, device=dev)
+    fn = native.function("blend_backward", "blend_backward_launch", _BLEND_BWD_ARGTYPES)
+    native.launch(fn, rec3.data_ptr(), counts.data_ptr(), off.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), dpack.data_ptr(), t, nch, capk, nty, group, pack_cap,
+                  dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+                  what="blend_tiles_backward")
+    return dpack
+
+
+def scatter_packed(dpack, eff, num_records: int) -> torch.Tensor:
+    """Sum packed gradient rows onto their record rows -> (num_records, REC).
+
+    Rows past min(demand, pack_cap) were never written: they are masked
+    to a zero added to row 0. Channels 19:24 of a record carry no
+    gradient."""
+    pack_cap = dpack.shape[0]
+    written = torch.clamp(torch.sum(eff), max=pack_cap)
+    live_row = torch.arange(pack_cap, device=dpack.device) < written
+    idx = torch.where(live_row, dpack[:, OUTREC - 1].to(torch.int64), 0)
+    dsum = torch.zeros((num_records, OUTREC), dtype=dpack.dtype, device=dpack.device)
+    dsum.index_add_(0, idx, torch.where(live_row[:, None], dpack, 0.0))
+    return torch.cat([dsum[:, :OUTREC - 1],
+                      dsum.new_zeros((num_records, REC - (OUTREC - 1)))], dim=1)
+
+
+class BlendTiles(torch.autograd.Function):
+    """Blend pre-binned record lists; the backward routes gradients to the
+    rows of `rec_c` (N, REC), the differentiable records whose data the
+    forward never reads: rec3 holds copies of them, each with its row of
+    rec_c in channel 21."""
+
+    @staticmethod
+    def forward(ctx, rec_c, rec3, counts, nty, pack_cap, plain):
+        out = (blend_tiles_plain if plain else blend_tiles)(rec3, counts, nty)
+        ctx.save_for_backward(rec3, counts, out)
+        ctx.args = (rec_c.shape[0], nty, pack_cap, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        rec3, counts, out = ctx.saved_tensors
+        num_records, nty, pack_cap, plain = ctx.args
+        group = min(GROUP, rec3.shape[2])
+        eff = _effective_counts(counts, out, group)
+        off = (torch.cumsum(eff, dim=0) - eff).to(torch.int32)
+        backward = blend_tiles_backward_plain if plain else blend_tiles_backward
+        dpack = backward(rec3, counts, off, out, dout.contiguous(), nty, pack_cap)
+        return scatter_packed(dpack, eff, num_records), None, None, None, None, None
+
+
 def rasterize_cuda(splats: SplatScreen, settings, bg_color: torch.Tensor,
                    plain: bool = False):
     """(image (H,W,3), allmap) of the preprocessed splats: the counterpart
@@ -243,6 +444,8 @@ def rasterize_cuda(splats: SplatScreen, settings, bg_color: torch.Tensor,
     n_vis = torch.clamp(comp.num_visible, max=k_vis)
 
     col_cap = settings.col_capacity
+    # The id channel of the lists carries original splat ids (comp.perm), so
+    # the backward scatters straight onto the rows of `rec`.
     rec3, raw_counts, bin_counts, col_counts = _bin_records(
         comp.x0, comp.x1, comp.y0, comp.y1, n_vis, rec.detach(), nbx, nty,
         bin_cap, cap, col_cap=col_cap, ids=comp.perm, plain=plain)
@@ -255,36 +458,38 @@ def rasterize_cuda(splats: SplatScreen, settings, bg_color: torch.Tensor,
         "_aux_bin_count_max": torch.amax(bin_counts).to(f32),
         "_aux_col_count_max": torch.amax(col_counts).to(f32),
     }
-    return blend_binned(rec3, raw_counts, settings, bg_color, nbx, nty, aux,
+    return blend_binned(rec, rec3, raw_counts, settings, bg_color, nbx, nty, aux,
                         plain=plain)
 
 
-def blend_binned(rec3, raw_counts, settings, bg_color, nbx, nty, aux, plain=False):
+def blend_binned(rec_c, rec3, raw_counts, settings, bg_color, nbx, nty, aux, plain=False):
     """Blend pre-binned, depth-ordered record lists into (image, allmap).
 
-    rec3 (T, NCH, capk) channel-major per-tile record lists from
-    _bin_records, raw_counts (T,) total overlaps. `aux` = extra _aux_*
-    diagnostics merged into allmap."""
+    rec_c (N, REC): the differentiable records whose rows the lists' id
+    channel indexes, the gradient target. rec3 (T, NCH, capk)
+    channel-major per-tile record lists from _bin_records (no gradient
+    flows through them), raw_counts (T,) total overlaps. `aux` = extra
+    _aux_* diagnostics merged into allmap."""
     w, h = settings.width, settings.height
     t, _, capk = rec3.shape
     counts = torch.clamp(raw_counts, max=capk).to(torch.int32)
 
-    # Packed gradient capacity, as the backward will size it: reported now
-    # so the overflow counters and keys match the JAX backend.
+    # Global capacity of the backward's packed gradient rows, a whole
+    # number of staging groups: offsets are group-aligned, and a group is
+    # written whole or dropped whole.
     pack_cap = settings.grad_pack_capacity or (16 * _round128(capk) * nbx)
     pack_cap = min(_round128(pack_cap), _round128(t * capk))
     grp = min(GROUP, capk)
     pack_cap = -(-pack_cap // grp) * grp
 
-    blend = blend_tiles_plain if plain else blend_tiles
-    out = blend(rec3, counts, nty)
+    out = BlendTiles.apply(rec_c, rec3, counts, nty, pack_cap, plain)
 
     def untile(ch):
         # column-major tile rows: t = tix*nty + tiy
         a = out[:, ch].reshape(nbx, nty, BY, BX)
         return a.permute(1, 2, 0, 3).reshape(nty * BY, nbx * BX)[:h, :w]
 
-    pack_demand = torch.sum(_effective_counts(counts, out, grp))
+    pack_demand = torch.sum(_effective_counts(counts, out.detach(), grp))
 
     f32 = torch.float32
     t_final = untile(3)

@@ -48,6 +48,12 @@ class SplatScreen(NamedTuple):
     visible: torch.Tensor   # (N,) bool
 
 
+def clamp_color(rgb: torch.Tensor) -> torch.Tensor:
+    """max(rgb, 0). torch.maximum halves the gradient at a tie, as
+    jnp.maximum does; torch.clamp would pass all of it."""
+    return torch.maximum(rgb, torch.zeros_like(rgb))
+
+
 def conic_bounds(tmat: torch.Tensor, tau2=None):
     """Screen AABB of the projected tau-sigma disk (default tau = CUTOFF).
 
@@ -174,7 +180,7 @@ def preprocess(
     else:
         dirs = transforms.normalize(xyz - cam.cam_center[None, :])
         shs = torch.swapaxes(features, -1, -2)  # (N,3,K)
-        color = torch.clamp(sh_lib.eval_sh(sh_degree, shs, dirs) + 0.5, min=0.0)
+        color = clamp_color(sh_lib.eval_sh(sh_degree, shs, dirs) + 0.5)
 
     # View-space normal flipped to face the camera (dual-visible surfels).
     n_view = tw @ cam.world_view[:3, :3]

@@ -1,0 +1,426 @@
+"""Training: one step as a function, and the host-side orchestration
+(port of tpu2dgs/train/loop.py).
+
+  * `train_step`: render -> loss -> backward -> Adam -> densification
+    statistics, for one view or a batch of views. The loss-term gates
+    (normal loss and distortion loss switch on at set iterations) enter as
+    plain scalars.
+  * `Trainer`: the host loop: camera shuffling, the spherical-harmonics
+    warm-up, densification, opacity resets, capacity growth, adaptive
+    growth of the rasterizer's capacities from its overflow counters, a
+    rolling Mpix/s counter.
+
+The step launches the select kernel three times and the forward and the
+backward blend kernel once each per view. Nothing in it reads a value
+back to the host: the loss is read every `loss_sync_interval` steps and
+the overflow counters once per densification interval, so the host keeps
+enqueueing ahead of the device.
+
+Densification gradients: the gradient with respect to the `mean2d_offset`
+argument of render, converted from pixel units to NDC half-extent units
+(times 0.5 * W, 0.5 * H) so the reference's 2e-4 threshold carries over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from tpu2dgs_torch.core.cameras import Camera
+from tpu2dgs_torch.model import densify as densify_lib
+from tpu2dgs_torch.model import optim as optim_lib
+from tpu2dgs_torch.model import splats as splats_lib
+from tpu2dgs_torch.raster.api import RasterSettings, render
+from tpu2dgs_torch.raster.cuda_backend import BX, _round_group
+from tpu2dgs_torch.train import losses
+
+# Backend capacity-overflow diagnostics (api.render output keys) and the
+# RasterSettings knob each one is healed by. The xfer keys belong to the
+# multi-device splat exchange and appear only when a backend reports them.
+OVERFLOW_KEYS = ("tile_overflow_frac", "bin_overflow_frac",
+                 "col_overflow_frac", "grad_pack_overflow_frac",
+                 "vis_overflow", "tile_count_max", "bin_count_max",
+                 "col_count_max", "grad_pack_max",
+                 "xfer_overflow_frac", "xfer_count_max")
+OVERFLOW_CAP_OF = {
+    "tile_overflow_frac": "tile_capacity",
+    "bin_overflow_frac": "bin_capacity",
+    "col_overflow_frac": "col_capacity",
+    "grad_pack_overflow_frac": "grad_pack_capacity",
+    "xfer_overflow_frac": "xfer_capacity",
+}
+# True demand maxima reported by the backend: growth sizes the new cap
+# directly from these instead of climbing a 1.5x ladder.
+OVERFLOW_DEMAND_OF = {
+    "tile_overflow_frac": "tile_count_max",
+    "bin_overflow_frac": "bin_count_max",
+    "col_overflow_frac": "col_count_max",
+    "grad_pack_overflow_frac": "grad_pack_max",
+    "xfer_overflow_frac": "xfer_count_max",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization defaults of record (the reference's arguments and
+    schedule constants)."""
+
+    iterations: int = 30_000
+    lambda_dssim: float = 0.2
+    lambda_dist: float = 0.0
+    lambda_normal: float = 0.05
+    normal_from_iter: int = 7_000
+    dist_from_iter: int = 3_000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3_000
+    sh_increment_interval: int = 1_000
+    grad_threshold: float = 2e-4
+    percent_dense: float = 0.01
+    opacity_cull: float = 0.05
+    random_background: bool = False
+    grow_watermark: float = 0.9   # grow capacity when live/capacity exceeds
+    camera_batch: int = 1         # views per step (batched SGD)
+    loss_sync_interval: int = 10  # read the loss on the host every N steps:
+                                  # a read per step would make the host wait
+                                  # for the device each step
+
+
+def view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal, lam_dist,
+                   plain: bool = False):
+    """The training loss of one view and its gradients: (loss, (radii, l1,
+    normal loss, distortion loss, overflow dict), gradients as SplatParams,
+    gradient of the screen-space offset (C,2)). `plain=True` goes through
+    the kernels' plain versions."""
+    p = model.params
+    offset = torch.zeros((model.capacity, 2), dtype=torch.float32,
+                         device=p.xyz.device, requires_grad=True)
+    out = render(
+        cam, settings,
+        p.xyz,
+        torch.exp(p.scaling),
+        p.rotation,
+        torch.sigmoid(p.opacity[:, 0]),
+        splats_lib.features(p),
+        bg,
+        mean2d_offset=offset,
+        live=model.live,
+        device=p.xyz.device,
+        plain=plain,
+    )
+    photo, ll1 = losses.photometric_loss(out["render"], gt, lambda_dssim)
+    ln = losses.normal_consistency_loss(out["rend_normal"], out["surf_normal"])
+    ld = losses.distortion_loss(out["rend_dist"])
+    total = photo + lam_normal * ln + lam_dist * ld
+    # Every capacity-overflow diagnostic the backend reports rides along, so
+    # the Trainer can close the loop (adaptive cap growth).
+    overflow = {k: out[k].detach().to(torch.float32) for k in OVERFLOW_KEYS if k in out}
+    grads = torch.autograd.grad(total, [*p, offset])
+    aux = (out["radii"], ll1.detach(), ln.detach(), ld.detach(), overflow)
+    return total.detach(), aux, splats_lib.SplatParams(*grads[:-1]), grads[-1]
+
+
+def train_step(settings: RasterSettings, opt_cfg: optim_lib.OptimConfig,
+               lambda_dssim: float, spatial_lr_scale: float,
+               model: splats_lib.SplatModel, adam: optim_lib.AdamState,
+               cams, gts, bg, step, lam_normal: float, lam_dist: float):
+    """One optimization step on the views `cams` (a list of CameraArrays)
+    with ground truths `gts`. Updates `model` and `adam` in place and
+    returns (model, adam, metrics); the metrics are tensors on the device.
+
+    With several views the loss and the gradients are the mean over the
+    views, the radii their maximum; the demand maxima among the overflow
+    counters (*_max) reduce with the maximum, the fractions with the
+    mean."""
+    n = len(cams)
+    per_view = [view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal,
+                               lam_dist) for cam, gt in zip(cams, gts)]
+    if n == 1:
+        loss, (radii, ll1, ln, ld, overflow), gparams, goffset = per_view[0]
+    else:
+        def mean(xs):
+            return torch.mean(torch.stack(list(xs)), dim=0)
+
+        loss = mean(v[0] for v in per_view)
+        auxes = [v[1] for v in per_view]
+        radii = torch.amax(torch.stack([a[0] for a in auxes]), dim=0)
+        ll1, ln, ld = (mean(a[i] for a in auxes) for i in (1, 2, 3))
+        overflow = {
+            k: (torch.amax if k.endswith("_max") else torch.mean)(
+                torch.stack([a[4][k] for a in auxes]), dim=0)
+            for k in auxes[0][4]}
+        gparams = splats_lib.SplatParams(*(mean(gs) for gs in zip(*(v[2] for v in per_view))))
+        goffset = mean(v[3] for v in per_view)
+
+    lrs = optim_lib.learning_rates(opt_cfg, step, spatial_lr_scale)
+    _, adam = optim_lib.adam_step(opt_cfg, model.params, gparams, adam, lrs, model.live)
+    half = goffset.new_tensor([settings.width * 0.5, settings.height * 0.5])
+    densify_lib.add_stats(model, goffset * half[None, :], radii)
+
+    metrics = {
+        "loss": loss, "l1": ll1, "normal": ln, "dist": ld,
+        "num_visible": torch.sum(radii > 0),
+        **overflow,
+    }
+    return model, adam, metrics
+
+
+def grow_with_adam(model, adam: optim_lib.AdamState, new_capacity: int, segments: int = 1):
+    """Capacity growth: pad the parameters, the statistics and the Adam
+    moments with dead rows."""
+    old_cap = model.capacity
+    model = splats_lib.grow_capacity(model, new_capacity, segments=segments)
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((new_capacity - old_cap, *a.shape[1:]))])
+
+    adam = optim_lib.AdamState(
+        count=adam.count,
+        mu=splats_lib.SplatParams(*(pad(a) for a in adam.mu)),
+        nu=splats_lib.SplatParams(*(pad(a) for a in adam.nu)),
+    )
+    return model, adam
+
+
+class Trainer:
+    """Host-side training orchestration."""
+
+    def __init__(
+        self,
+        model: splats_lib.SplatModel,
+        cameras: list[Camera],
+        width: int,
+        height: int,
+        spatial_lr_scale: float,
+        scene_extent: float,
+        train_cfg: TrainConfig = TrainConfig(),
+        opt_cfg: optim_lib.OptimConfig = optim_lib.OptimConfig(),
+        raster_kwargs: Optional[dict] = None,
+        white_background: bool = False,
+        max_sh_degree: int = 3,
+        seed: int = 0,
+        log_fn: Optional[Callable[[int, dict], None]] = None,
+        max_capacity: int = 4_194_304,
+        mesh=None,
+        shard_splats: bool = False,
+        profile_dir: str | None = None,
+        profile_steps: tuple[int, int] = (100, 110),
+        max_caps: Optional[dict] = None,
+        gui=None,
+    ):
+        if mesh is not None or shard_splats:
+            raise NotImplementedError("multi-device training is not ported yet")
+        if gui is not None:
+            raise NotImplementedError("the viewer is not ported yet")
+        self.model = model
+        self.device = model.xyz.device
+        self.max_capacity = max_capacity
+        self.adam = optim_lib.init_adam(model.params)
+        self.cameras = cameras
+        self.width, self.height = width, height
+        self.spatial_lr_scale = spatial_lr_scale
+        self.scene_extent = scene_extent
+        self.cfg = train_cfg
+        self.opt_cfg = opt_cfg
+        self.raster_kwargs = dict(raster_kwargs or {})
+        self.white_background = white_background
+        self.max_sh_degree = max_sh_degree
+        self.active_sh_degree = 0
+        self.rng = np.random.default_rng(seed)  # camera order: as the JAX Trainer
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.log_fn = log_fn
+        # torch.profiler trace of steps [a, b) when set, written to
+        # profile_dir as a Chrome trace, and a rolling Mpix/s counter.
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self._profiler = None
+        self.mpix_s = 0.0
+        self.step = 0
+        self.ema_loss = 0.0
+        self._cam_stack: list[int] = []
+        self.densify_cfg = densify_lib.DensifyConfig(
+            grad_threshold=train_cfg.grad_threshold,
+            percent_dense=train_cfg.percent_dense,
+            opacity_cull=train_cfg.opacity_cull,
+        )
+        self.bg = (torch.ones if white_background else torch.zeros)(
+            3, dtype=torch.float32, device=self.device)
+        # Adaptive capacity caps: any nonzero overflow fraction seen at a
+        # densification boundary raises the corresponding cap before the
+        # next step, so a scene whose depth complexity exceeds the
+        # configured caps heals itself instead of truncating its lists
+        # until someone reads the counters. The growth ceilings are the
+        # JAX package's, kept so both packages heal alike.
+        self.max_caps = {
+            "tile_capacity": 16_384, "bin_capacity": 20_480,
+            "col_capacity": 61_440, "grad_pack_capacity": 1 << 22,
+            "xfer_capacity": 262_144,
+            **(max_caps or {}),
+        }
+        self.cap_growth_events: list[tuple[int, str, int]] = []
+        self.last_densify: Optional[densify_lib.DensifyInfo] = None
+        self._cam_arrays = [c.arrays(self.device) for c in cameras]
+        # Ground-truth images: staged on the device once.
+        self._gt_images = [
+            None if c.image is None
+            else torch.from_numpy(np.asarray(c.image, np.float32)).to(self.device)
+            for c in cameras]
+
+    # -- helpers -----------------------------------------------------------
+
+    def _settings(self) -> RasterSettings:
+        return RasterSettings(
+            width=self.width, height=self.height,
+            sh_degree=self.active_sh_degree, **self.raster_kwargs,
+        )
+
+    def _next_camera_index(self) -> int:
+        if not self._cam_stack:
+            self._cam_stack = list(self.rng.permutation(len(self.cameras)))
+        return int(self._cam_stack.pop())
+
+    def _current_cap(self, kwarg: str) -> int:
+        val = self.raster_kwargs.get(kwarg)
+        if val is None:
+            val = getattr(RasterSettings, kwarg)  # dataclass field default
+        if kwarg == "grad_pack_capacity" and not val:
+            # 0 = derived default: 16 * group-rounded tile capacity * image
+            # tile columns, an upper bound of the backend's own derivation
+            # (cuda_backend.blend_binned)
+            tc = self._current_cap("tile_capacity")
+            val = 16 * _round_group(tc) * (-(-self.width // BX))
+        return int(val)
+
+    def _maybe_grow_caps(self, it: int, metrics: dict) -> None:
+        """Close the capacity-overflow loop: any nonzero overflow fraction
+        raises its cap to the reported demand plus 25%, at least 1.5x
+        (128-rounded), up to the ceiling. Reads the counters back to the
+        host: called only at cadence boundaries."""
+        for key, kwarg in OVERFLOW_CAP_OF.items():
+            v = metrics.get(key)
+            if v is None or float(v) <= 0.0:
+                continue
+            cur = self._current_cap(kwarg)
+            demand = metrics.get(OVERFLOW_DEMAND_OF[key])
+            want = int(float(demand) * 1.25) if demand is not None else int(cur * 1.5)
+            new = min(-(-max(want, int(cur * 1.5)) // 128) * 128, self.max_caps[kwarg])
+            if new > cur:
+                self.raster_kwargs[kwarg] = new
+                self.cap_growth_events.append((it, kwarg, new))
+
+    def _profile(self, it: int) -> None:
+        if it == self.profile_steps[0] and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+        elif it == self.profile_steps[1]:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self._profiler is not None:
+            self._profiler.stop()
+            os.makedirs(self.profile_dir, exist_ok=True)
+            self._profiler.export_chrome_trace(
+                os.path.join(self.profile_dir, f"train_steps_{self.profile_steps[0]}.json"))
+            self._profiler = None
+
+    # -- the loop ----------------------------------------------------------
+
+    def train(self, num_iters: Optional[int] = None, progress: bool = False):
+        end = self.step + (num_iters or self.cfg.iterations)
+        t0 = time.perf_counter()
+        t_win, it_win = t0, self.step  # rolling Mpix/s window
+        cfg = self.cfg
+        while self.step < end:
+            self.step += 1
+            it = self.step
+
+            if self.profile_dir is not None:
+                self._profile(it)
+
+            # SH degree warm-up: one level every sh_increment_interval steps.
+            if it % cfg.sh_increment_interval == 0 and self.active_sh_degree < self.max_sh_degree:
+                self.active_sh_degree += 1
+
+            idxs = [self._next_camera_index() for _ in range(cfg.camera_batch)]
+            bg = (torch.rand(3, device=self.device, generator=self.generator)
+                  if cfg.random_background else self.bg)
+            lam_n = cfg.lambda_normal if it > cfg.normal_from_iter else 0.0
+            lam_d = cfg.lambda_dist if it > cfg.dist_from_iter else 0.0
+
+            self.model, self.adam, metrics = train_step(
+                self._settings(), self.opt_cfg, cfg.lambda_dssim, self.spatial_lr_scale,
+                self.model, self.adam, [self._cam_arrays[i] for i in idxs],
+                [self._gt_images[i] for i in idxs], bg, float(it), lam_n, lam_d)
+
+            # Adaptive cap growth: consume the overflow counters at the
+            # densification cadence (one host sync per interval).
+            if it % cfg.densification_interval == 0:
+                self._maybe_grow_caps(it, metrics)
+
+            # Densify / prune / opacity reset.
+            if it < cfg.densify_until_iter:
+                if it > cfg.densify_from_iter and it % cfg.densification_interval == 0:
+                    self.model, self.adam, info = densify_lib.densify_and_prune(
+                        self.densify_cfg, self.model, self.adam, self.generator,
+                        float(self.scene_extent), it > cfg.opacity_reset_interval)
+                    self.last_densify = info
+                    # Children dropped for lack of free slots are capacity
+                    # pressure too.
+                    if ((int(info.num_live) > cfg.grow_watermark * self.model.capacity
+                         or int(info.num_dropped) > 0)
+                            and self.model.capacity < self.max_capacity):
+                        new_cap = min(splats_lib.round_capacity(2 * self.model.capacity),
+                                      self.max_capacity)
+                        self.model, self.adam = grow_with_adam(self.model, self.adam, new_cap)
+                if it % cfg.opacity_reset_interval == 0 or (
+                        self.white_background and it == cfg.densify_from_iter):
+                    densify_lib.reset_opacity(self.model, self.adam)
+
+            if it % 50 == 0:
+                # rolling Mpix/s (rasterized pixels per second of host time)
+                now = time.perf_counter()
+                px = (it - it_win) * self.width * self.height * cfg.camera_batch
+                self.mpix_s = px / max(now - t_win, 1e-9) / 1e6
+                t_win, it_win = now, it
+                metrics = dict(metrics)
+                metrics["mpix_per_s"] = self.mpix_s
+            if self.log_fn is not None:
+                self.log_fn(it, metrics)
+            # The loss EMA is for display: read it now and then, so the
+            # host does not wait for the device every step.
+            if it % cfg.loss_sync_interval == 0 or it == end:
+                self.ema_loss = 0.4 * float(metrics["loss"]) + 0.6 * self.ema_loss
+            if progress and it % 200 == 0:
+                dt = time.perf_counter() - t0
+                print(f"[{it}] loss={self.ema_loss:.4f} live={int(self.model.num_live())} "
+                      f"({it / dt:.1f} it/s, {self.mpix_s:.2f} Mpix/s)", flush=True)
+        self._stop_profile()  # training ended inside the profile window
+        return self.model
+
+    # -- rendering for eval -------------------------------------------------
+
+    @torch.no_grad()
+    def render_view(self, cam: Camera, depth_ratio: Optional[float] = None):
+        kwargs = dict(self.raster_kwargs)
+        if depth_ratio is not None:
+            kwargs["depth_ratio"] = depth_ratio
+        settings = RasterSettings(width=self.width, height=self.height,
+                                  sh_degree=self.active_sh_degree, **kwargs)
+        p = self.model.params
+        return render(
+            cam.arrays(self.device), settings,
+            p.xyz, torch.exp(p.scaling), p.rotation,
+            torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p),
+            self.bg, live=self.model.live, device=self.device,
+        )
