@@ -2,44 +2,66 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from csrc/, holds each against its plain PyTorch
-version at the shapes of the 800x800 / 131,072-splat bench scene, then
-drives the two main paths. Serving: a shell scene written with save_ply,
-read back with load_ply and rendered through raster.api.render from four
-orbit poses. Training: train.loop.Trainer takes 24 steps on the shell
-scene from a perturbed start, with all three loss terms on, two
-densification rounds, capacity growth and the overflow healing checks,
-and one of its gradients is held against the same gradient through the
-plain versions. Both count the kernel launches they make. Each phase
+Builds the CUDA kernels from csrc/ (and the host's Morton KNN), holds each
+of the six kernels against its plain PyTorch version (the select, count
+and blend kernels at the shapes of the 800x800 / 131,072-splat bench
+scene, the reduction probes at their own 512 steps), then drives every
+main path:
+
+  probes   eval.bin_probe and eval.reduce_probe end to end.
+  serving  a shell scene written with save_ply, read back with load_ply
+           and rendered through raster.api.render from four orbit poses.
+  training train.loop.Trainer takes 24 steps on the shell scene from a
+           perturbed start, with all three loss terms on, two
+           densification rounds, capacity growth and the overflow healing
+           checks, and one of its gradients is held against the same
+           gradient through the plain versions.
+  cli      the shell training set written to disk as a COLMAP dataset,
+           cli.train from a fresh start with its ground truth kept on the
+           host, a resume from its checkpoint at full width, cli.render
+           and cli.metrics on the model directory.
+
+Each path counts the kernel launches it makes, from zero. Each phase
 prints one JSON line; the line before the last but one lists every kernel
 with its launches, times and bound, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Any failed check exits nonzero before that line. Needs a CUDA device and
-nvcc; imports nothing of JAX. `python3 chip_smoke.py kernels` stops after
-the kernel checks and prints no verdict.
+Any failed check exits nonzero before that line. Needs a CUDA device, nvcc
+and g++; imports nothing of JAX. `python3 chip_smoke.py kernels` stops
+after the kernel checks and prints no verdict.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
-import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 
-from tpu2dgs_torch.eval import synthetic
+from tpu2dgs_torch.cli import metrics as cli_metrics
+from tpu2dgs_torch.cli import render as cli_render
+from tpu2dgs_torch.cli import train as cli_train
+from tpu2dgs_torch.core.cameras import fov2focal
+from tpu2dgs_torch.core.sh import sh_to_rgb
+from tpu2dgs_torch.data import colmap
+from tpu2dgs_torch.data.paths import save_img_u8
+from tpu2dgs_torch.data.scene import Scene
+from tpu2dgs_torch.eval import bin_probe, reduce_probe, synthetic
+from tpu2dgs_torch.eval.timing import card, cuda_ms
 from tpu2dgs_torch.model import splats as splats_lib
 from tpu2dgs_torch.native import build as native
+from tpu2dgs_torch.native import knn as native_knn
 from tpu2dgs_torch.raster import api, cuda_backend, preprocess, select_kernel
-from tpu2dgs_torch.train import loop
+from tpu2dgs_torch.train import checkpoint, loop
 
 W = H = 800
 N_SPLATS = 1 << 17
@@ -54,6 +76,11 @@ VIEWS = 4
 GT_CAPS = dict(bin_capacity=20480, tile_capacity=10240, col_capacity=61440)
 TRAIN_STEPS = 24
 TRAIN_VIEWS = 4  # one epoch of the camera shuffle: first and last 4 steps see every view
+# The command-line phase: 4 views on disk (3 to train on, 1 held out), a
+# fresh run of 12 iterations with a checkpoint at 10, a resumed run of 10.
+CLI_VIEWS = 4
+CLI_STEPS = (12, 10)
+CLI_RESUME_STEPS = 10
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate and the
 # float32 rate outside the tensor cores.
@@ -79,6 +106,9 @@ RENDER_TOL = 2e-4         # served render vs its plain-version render
 # by 1 - alpha amplifies a last-bit difference a hundredfold.
 BWD_ROW_TOL = 1e-3        # packed row: max |kernel - plain| / the row's largest |value|
 BWD_SCATTER_TOL = 1e-4    # scattered (K, 19) gradient: max |d| / max |gradient|
+# Reduction probes against plain, per element of the (128,) row, relative:
+# all three sum the same 8192 float32 terms per column in different orders.
+REDUCE_TOL = 1e-5
 # Training gradient through the kernels against plain, per parameter:
 # max |d| <= GRAD_TOL x that parameter's max |gradient|, or <= GRAD_FLOOR x
 # the largest gradient of any parameter. Every parameter's gradient is a
@@ -102,21 +132,6 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -148,28 +163,14 @@ def bench_inputs(settings):
     return out, selects, blends[0][0]
 
 
-def select_level(level, args, kwargs):
-    """Hold the select kernel against its plain version on one level."""
-    got, cnt = select_kernel.select_values(*args, **kwargs)
-    ref, ref_cnt = select_kernel.select_values_plain(*args, **kwargs)
-    torch.cuda.synchronize()
-    if not (bits_equal(got, ref) and torch.equal(cnt, ref_cnt)):
-        diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
-        fail(f"select {level}: kernel differs from plain ({diff} values, "
-             f"counts equal: {torch.equal(cnt, ref_cnt)})")
-    ms = cuda_ms(lambda: select_kernel.select_values(*args, **kwargs), reps=20)
-    plain_ms = cuda_ms(lambda: select_kernel.select_values_plain(*args, **kwargs),
-                       reps=5, warmup=1)
-
-    # Bound: the tested channels of every parent's walked candidates read
-    # once, every output slot and count written once; hit tests of every
-    # walked (row, candidate) pair.
-    rects, cand, parent, cap = args[0], args[1], args[2], args[3]
-    if isinstance(cand, (tuple, list)):
-        m = cand[0].shape[-1]
-    else:
-        m = cand.shape[-1]
+def select_walk(kwargs):
+    """What a select level's rows walk and what must be read for them:
+    (walked candidates per row, candidates read per parent summed over the
+    parents, tested channels, operations per test)."""
+    cand = kwargs["cand_channels"]
+    m = (cand[0] if isinstance(cand, (tuple, list)) else cand).shape[-1]
     m = -(-m // select_kernel.MACRO) * select_kernel.MACRO
+    parent = kwargs["parent_of_row"]
     pcnt = kwargs["parent_counts"].to(torch.int64).clamp(0, m)
     walked = (pcnt + select_kernel.MACRO - 1) // select_kernel.MACRO * select_kernel.MACRO
     per_parent = torch.zeros(int(parent.max()) + 1, dtype=torch.int64, device=walked.device)
@@ -177,17 +178,130 @@ def select_level(level, args, kwargs):
     exact = kwargs.get("exact_idx") is not None
     box = kwargs.get("box_idx", (0, 1, 2, 3)) is not None
     n_test = (13 if exact else 0) + (4 if box else 0)
+    test_ops = (EXACT_TEST_OPS if exact else 0) + (BOX_TEST_OPS if box else 0)
+    return walked, int(per_parent.sum()), n_test, test_ops
+
+
+def launcher_ms(launch, kwargs, cap) -> float:
+    """Device time of a select kernel alone: its arguments prepared once,
+    the launcher called 200 times back to back. `ms` in the lines below is
+    the wrapper's time as a caller pays it, argument handling included,
+    and for kernels this short that is the host's time, not the card's."""
+    box_idx = kwargs.get("box_idx", (0, 1, 2, 3))
+    rects, stacked, parent, pcnt, pads = select_kernel._prepare(
+        kwargs["row_rects"], kwargs["cand_channels"], kwargs["parent_of_row"],
+        cap or select_kernel.LB, kwargs["parent_counts"], kwargs.get("pad_vals"), box_idx)
+    exact_idx = kwargs.get("exact_idx")
+    if cap is None:
+        return cuda_ms(lambda: launch(rects, stacked, parent, pcnt, box_idx, exact_idx),
+                       reps=200)
+    return cuda_ms(lambda: launch(rects, stacked, parent, pcnt, cap, pads, box_idx,
+                                  exact_idx), reps=200)
+
+
+def select_level(level, kwargs):
+    """Hold the select kernel against its plain version on one level."""
+    got, cnt = select_kernel.select_values(**kwargs)
+    ref, ref_cnt = select_kernel.select_values_plain(**kwargs)
+    torch.cuda.synchronize()
+    if not (bits_equal(got, ref) and torch.equal(cnt, ref_cnt)):
+        diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        fail(f"select {level}: kernel differs from plain ({diff} values, "
+             f"counts equal: {torch.equal(cnt, ref_cnt)})")
+    ms = cuda_ms(lambda: select_kernel.select_values(**kwargs), reps=20)
+    plain_ms = cuda_ms(lambda: select_kernel.select_values_plain(**kwargs),
+                       reps=5, warmup=1)
+    kernel_ms = launcher_ms(select_kernel._launch, kwargs, kwargs["cap"])
+
+    # Bound: the tested channels of every parent's walked candidates read
+    # once, every output slot and count written once; hit tests of every
+    # walked (row, candidate) pair.
+    walked, read, n_test, test_ops = select_walk(kwargs)
+    cap = kwargs["cap"]
     rows, n_chan = got.shape[0], got.shape[1]
-    bytes_ = 4 * (int(per_parent.sum()) * n_test + rows * n_chan * cap + rows * 7)
-    ops = int(walked.sum()) * ((EXACT_TEST_OPS if exact else 0) + (BOX_TEST_OPS if box else 0))
+    bytes_ = 4 * (read * n_test + rows * n_chan * cap + rows * 7)
+    ops = int(walked.sum()) * test_ops
     t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
     info = dict(level=level, rows=rows, out_shape=list(got.shape), cap=cap,
                 walked=int(walked.sum()), hits=int(cnt.sum()), max_count=int(cnt.max()),
-                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 max_abs_err=0.0)
     emit({"phase": "kernels", "kernel": "select_values", **info})
+    return info, cnt
+
+
+def count_level(level, kwargs, k1_counts):
+    """Hold the count-only select kernel against its plain version and
+    against the counts the select kernel returned for the same level."""
+    kwargs = {k: v for k, v in kwargs.items() if k != "cap"}
+    got = select_kernel.select_counts(**kwargs)
+    again = select_kernel.select_counts(**kwargs)
+    ref = select_kernel.select_counts_plain(**kwargs)
+    torch.cuda.synchronize()
+    for name, other in (("plain", ref), ("select_values' counts", k1_counts),
+                        ("a second launch", again)):
+        if got.dtype != torch.int32 or not torch.equal(got, other.to(torch.int32)):
+            fail(f"count {level}: kernel differs from {name} in "
+                 f"{int((got != other).sum())} of {got.numel()} rows")
+    ms = cuda_ms(lambda: select_kernel.select_counts(**kwargs), reps=20)
+    plain_ms = cuda_ms(lambda: select_kernel.select_counts_plain(**kwargs), reps=5, warmup=1)
+    kernel_ms = launcher_ms(select_kernel._count_launch, kwargs, None)
+
+    # Bound: as the select kernel's, with one count written per row and no
+    # output slots.
+    walked, read, n_test, test_ops = select_walk(kwargs)
+    rows = got.shape[0]
+    bytes_ = 4 * (read * n_test + rows * 7)
+    ops = int(walked.sum()) * test_ops
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    info = dict(level=level, rows=rows, walked=int(walked.sum()), hits=int(got.sum()),
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", max_abs_err=0.0)
+    emit({"phase": "kernels", "kernel": "select_counts", **info})
     return info
+
+
+def reduce_check():
+    """Hold both reduction-probe kernels against their plain version at the
+    probe's own size (512 steps of 16 planes)."""
+    steps = reduce_probe.STEPS
+    base = reduce_probe.probe_input(0)
+    ref = reduce_probe.reduce_probe_plain(base, steps)
+    plain_ms = cuda_ms(lambda: reduce_probe.reduce_probe_plain(base, steps), reps=1, warmup=0)
+    # What one PyTorch call can do of this function: the row sums of the
+    # planes once they exist. It reads them from device memory, which the
+    # kernels never do, and leaves out their making and the weighted sum, so
+    # it is reported beside the kernels and not as their library time.
+    f = torch.arange(1, steps * reduce_probe.NPLANES + 1, dtype=torch.float32,
+                     device=base.device)[:, None, None]
+    planes = base[None] * f + f
+    planes_sum_ms = cuda_ms(lambda: planes.sum(dim=1), reps=20)
+    del planes
+    # Bound: per step 16 planes of 2048 values, each built (a multiply and
+    # an add) and summed (an add), and 16 rows of 128 weighted and added.
+    ops = steps * (reduce_probe.NPLANES * reduce_probe.BY * reduce_probe.BX * 3
+                   + reduce_probe.NPLANES * reduce_probe.BX * 2)
+    bytes_ = 4 * (reduce_probe.BY * reduce_probe.BX + reduce_probe.BX)
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    infos = {}
+    for name in ("reduce_probe_shuffle", "reduce_probe_mma"):
+        fn = getattr(reduce_probe, name)
+        got = fn(base, steps)
+        again = fn(base, steps)
+        torch.cuda.synchronize()
+        rel = float(((got - ref).abs() / ref.abs()).max())
+        if not (math.isfinite(rel) and rel <= REDUCE_TOL and bits_equal(got, again)):
+            fail(f"{name}: max relative error {rel} against plain (tol {REDUCE_TOL}), "
+                 f"two launches equal: {bits_equal(got, again)}")
+        ms = cuda_ms(lambda: fn(base, steps), reps=20)
+        infos[name] = dict(steps=steps, acc0=float(got[0]), plain_acc0=float(ref[0]),
+                           max_rel_err=rel, max_abs_err=float((got - ref).abs().max()),
+                           ms=ms, ns_per_set=ms * 1e6 / steps, plain_ms=plain_ms,
+                           planes_sum_ms=planes_sum_ms, bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+        emit({"phase": "kernels", "kernel": name, **infos[name]})
+    return infos
 
 
 def blend_check(rec3, counts, nty):
@@ -425,6 +539,256 @@ def train(caps):
     return total
 
 
+def probes():
+    """The two probe entry points end to end: the per-level binning probe
+    at the bench scene (the select kernel three times and the count-only
+    kernel twice per pass) and the reduction probe (both kernels)."""
+    native.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    binning = bin_probe.run()
+    reduction = reduce_probe.run()
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    passes = binning["passes"]
+    want = {"select_values": 3 * passes, "select_counts": 2 * passes}
+    if {k: launches.get(k) for k in want} != want:
+        fail(f"bin_probe launched {launches}, want {want} in {passes} passes")
+    for name in ("reduce_probe_shuffle", "reduce_probe_mma"):
+        if launches.get(name, 0) < 1:
+            fail(f"reduce_probe did not launch {name}: {launches}")
+    emit({"phase": "probe", "seconds": time.perf_counter() - t0, "launches": launches,
+          "launches_per_pass": {k: v // passes for k, v in want.items()},
+          "level_ms": binning["ms"], "bin_probe": binning, "reduce_probe": reduction})
+    return launches
+
+
+class Stopwatch:
+    """Host seconds spent inside chosen functions, each call bracketed by a
+    device synchronize: where a command-line run's time goes."""
+
+    def __init__(self):
+        self.seconds: dict[str, list[float]] = {}
+
+    def watch(self, owner, name: str, label: str):
+        orig = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds.setdefault(label, []).append(time.perf_counter() - t0)
+
+        return mock.patch.object(owner, name, timed)
+
+
+def write_colmap_scene(root: Path, cams, points: np.ndarray, colors: np.ndarray) -> None:
+    """A COLMAP dataset from posed views with images and a point cloud,
+    through the port's own writers."""
+    sparse = root / "sparse" / "0"
+    (root / "images").mkdir(parents=True)
+    sparse.mkdir(parents=True)
+    cam0 = cams[0]
+    intr = {1: colmap.ColmapCamera(1, "PINHOLE", cam0.width, cam0.height, np.array([
+        fov2focal(cam0.fovx, cam0.width), fov2focal(cam0.fovy, cam0.height),
+        cam0.width / 2.0, cam0.height / 2.0]))}
+    images = {}
+    for i, cam in enumerate(cams):
+        name = f"{i:03d}.png"
+        save_img_u8(cam.image.transpose(1, 2, 0), str(root / "images" / name))
+        images[i + 1] = colmap.ColmapImage(
+            i + 1, colmap.rotmat2qvec(cam.R.T), np.asarray(cam.T, np.float64), 1, name,
+            np.zeros((0, 2)), np.zeros((0,), np.int64))
+    colmap.write_cameras_binary(intr, str(sparse / "cameras.bin"))
+    colmap.write_images_binary(images, str(sparse / "images.bin"))
+    colmap.write_points3d_binary(points.astype(np.float64),
+                                 np.clip(colors * 255.0, 0, 255).astype(np.uint8),
+                                 str(sparse / "points3D.bin"))
+
+
+def read_jsonl(path: Path) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli(out_dir: Path):
+    """The command-line main path at full width: a COLMAP dataset of the
+    shell training set on disk, cli.train from a fresh start (spherical
+    harmonics degree 0, as every run starts, ground truth over its device
+    budget), a resume from its checkpoint stamped with step 3000 (degree 3,
+    distortion loss on), cli.render and cli.metrics."""
+    scene_dir, model_dir = out_dir / "scene", out_dir / "model"
+    for d in (scene_dir, model_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    cams, start = synthetic.make_shell_training_set(W, H, N_SPLATS, views=CLI_VIEWS, **GT_CAPS)
+    points = start.xyz.detach().cpu().numpy()
+    colors = sh_to_rgb(start.features_dc.detach()[:, 0]).cpu().numpy()
+    del start
+    write_colmap_scene(scene_dir, cams, points, colors)
+    write_s = time.perf_counter() - t0
+
+    caps = ["--bin_capacity", str(CAPS["bin_capacity"]), "--tile_capacity",
+            str(CAPS["tile_capacity"]), "--col_capacity", str(CAPS["col_capacity"])]
+    common = ["-s", str(scene_dir), "-m", str(model_dir), "--eval", "--resolution", "1",
+              "--quiet", "--disable_viewer", "--lambda_dist", "100", *caps]
+    watch = Stopwatch()
+    launches = Counter()  # of the three runs below, each counted from zero
+    first, ckpt_at = CLI_STEPS
+    n_train, n_test = CLI_VIEWS - 1, 1  # every 8th view, from view 0, is held out
+    report_views = n_test + 5           # the test set and 5 train views
+
+    # -- a fresh run, ground truth over the device budget ---------------------
+    native.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for owner, name, label in (
+                (Scene, "load", "scene_load"), (Scene, "save_model_info", "save_model_info"),
+                (native_knn, "knn_mean_dist2", "knn_init"),
+                (splats_lib, "create_from_pcd", "create_from_pcd"),
+                (loop.Trainer, "train", "train_block"), (splats_lib, "save_ply", "save_ply"),
+                (checkpoint, "save_checkpoint", "save_checkpoint")):
+            stack.enter_context(watch.watch(owner, name, label))
+        trainer = cli_train.main(
+            [*common, "--iterations", str(first), "--save_iterations", str(first),
+             "--test_iterations", str(first), "--checkpoint_iterations", str(ckpt_at),
+             "--gt_cache_mb", "10"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = dict(native.LAUNCHES)
+    launches.update(got)
+    want = {"select_values": 3 * (first + report_views), "blend_tiles": first + report_views,
+            "blend_tiles_backward": first}
+    if got != want:
+        fail(f"cli.train: {first} steps and {report_views} report views launched {got}, "
+             f"want {want}")
+    if trainer.gt_prestaged or trainer.active_sh_degree != 0 or trainer.step != first:
+        fail("cli.train: the fresh run should keep its ground truth on the host, train at "
+             f"degree 0 and stop at {first}: prestaged {trainer.gt_prestaged}, degree "
+             f"{trainer.active_sh_degree}, step {trainer.step}")
+    if len(trainer.cameras) != n_train or int(trainer.model.num_live()) != N_SPLATS:
+        fail(f"cli.train: {len(trainer.cameras)} train views, "
+             f"{int(trainer.model.num_live())} live splats")
+
+    # -- the checkpoint, stamped with step 3000, resumed at full width ----------
+    model, adam, step, _ = checkpoint.load_checkpoint(str(model_dir / f"chkpnt{ckpt_at}.npz"))
+    if step != ckpt_at or adam.count != ckpt_at:
+        fail(f"checkpoint holds step {step}, Adam count {adam.count}, want {ckpt_at}")
+    resume_from = model_dir / "chkpnt3000.npz"
+    checkpoint.save_checkpoint(str(resume_from), model, adam, 3000)
+    del model, adam
+    last = 3000 + CLI_RESUME_STEPS
+    native.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with watch.watch(loop.Trainer, "train", "train_block_resumed"):
+        resumed = cli_train.main(
+            [*common, "--start_checkpoint", str(resume_from), "--iterations", str(last),
+             "--save_iterations", str(last), "--test_iterations", str(last)])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    got = dict(native.LAUNCHES)
+    launches.update(got)
+    want = {"select_values": 3 * (CLI_RESUME_STEPS + report_views),
+            "blend_tiles": CLI_RESUME_STEPS + report_views,
+            "blend_tiles_backward": CLI_RESUME_STEPS}
+    if got != want:
+        fail(f"cli.train resumed: launched {got}, want {want}")
+    if (resumed.step, resumed.adam.count, resumed.active_sh_degree, resumed.gt_prestaged) \
+            != (last, ckpt_at + CLI_RESUME_STEPS, 3, True):
+        fail(f"cli.train resumed: step {resumed.step}, Adam count {resumed.adam.count}, "
+             f"degree {resumed.active_sh_degree}, prestaged {resumed.gt_prestaged}")
+
+    log = read_jsonl(model_dir / "metrics.jsonl")
+    l1 = [(d["step"], d["train_loss_patches/l1_loss"]) for d in log
+          if "train_loss_patches/l1_loss" in d]
+    total = [d["train_loss_patches/total_loss"] for d in log
+             if "train_loss_patches/total_loss" in d]
+    if len(l1) < 2 or not all(math.isfinite(v) for _, v in l1) \
+            or not all(math.isfinite(v) for v in total):
+        fail(f"cli.train: logged losses {l1}, {total}")
+    if not l1[-1][1] <= l1[0][1]:
+        fail(f"cli.train: the logged L1 loss rose from {l1[0]} to {l1[-1]}")
+
+    ply = model_dir / "point_cloud" / f"iteration_{last}" / "point_cloud.ply"
+    t0 = time.perf_counter()
+    reloaded = splats_lib.load_ply(str(ply))
+    torch.cuda.synchronize()
+    load_ply_s = time.perf_counter() - t0
+    if int(reloaded.num_live()) != int(resumed.model.num_live()):
+        fail(f"saved PLY reloads with {int(reloaded.num_live())} live splats, the trainer "
+             f"had {int(resumed.model.num_live())}")
+
+    # -- render and metrics ---------------------------------------------------------
+    native.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with watch.watch(Scene, "load", "render_scene_load"), \
+            watch.watch(splats_lib, "load_ply", "render_load_ply"):
+        cli_render.main(["-m", str(model_dir), "--skip_mesh", "--quiet", *caps])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    got = dict(native.LAUNCHES)
+    launches.update(got)
+    if got != {"select_values": 3 * CLI_VIEWS, "blend_tiles": CLI_VIEWS}:
+        fail(f"cli.render: {CLI_VIEWS} views launched {got}")
+
+    from PIL import Image
+
+    test_dir = model_dir / "test" / f"ours_{last}"
+    with Image.open(test_dir / "renders" / "00000.png") as im:
+        png = np.asarray(im, np.float32) / 255.0
+    with Image.open(test_dir / "vis" / "depth_00000.tiff") as im:
+        depth = np.asarray(im)
+    p = reloaded.params
+    # the held-out view as cli.render read it from the dataset
+    held_out = Scene.load(str(scene_dir), resolution=1, eval_split=True,
+                          shuffle=False).test_cameras[0]
+    settings = api.RasterSettings(W, H, **{k: v for k, v in CAPS.items()
+                                           if k != "grad_pack_capacity"})
+    with torch.no_grad():
+        ref = api.render(held_out.arrays(), settings, p.xyz, torch.exp(p.scaling), p.rotation,
+                         torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p),
+                         torch.zeros(3, device=p.xyz.device), live=reloaded.live)
+    want_png = np.clip(ref["render"].cpu().numpy().transpose(1, 2, 0), 0, 1)
+    # The PNG holds the render cut to 8 bits: within one step of them.
+    png_err = float(np.abs(png - want_png).max())
+    depth_err = float(np.abs(depth - ref["surf_depth"][0].cpu().numpy()).max())
+    if png.shape != (H, W, 3) or png_err > 1.0 / 255.0 + RENDER_TOL or depth_err > RENDER_TOL:
+        fail(f"cli.render view 0 against api.render of the reloaded PLY: image max|d| "
+             f"{png_err} (one 8-bit step + {RENDER_TOL} allowed), depth max|d| {depth_err} "
+             f"(tol {RENDER_TOL})")
+
+    t0 = time.perf_counter()
+    cli_metrics.main(["-m", str(model_dir), "--no_lpips"])
+    metrics_s = time.perf_counter() - t0
+    with open(model_dir / "results.json") as f:
+        results = json.load(f)[f"ours_{last}"]
+    if not (math.isfinite(results["PSNR"]) and math.isfinite(results["SSIM"])
+            and results["LPIPS"] is None):
+        fail(f"cli.metrics: {results}")
+    for name in ("cfg_args", "cameras.json", "input.ply", "per_view.json"):
+        if not (model_dir / name).exists():
+            fail(f"the model directory lacks {name}")
+
+    steps_ms = [1e3 * s / n for s, n in ((sum(watch.seconds["train_block"]), first),
+                                         (sum(watch.seconds["train_block_resumed"]),
+                                          CLI_RESUME_STEPS))]
+    emit({"phase": "cli", "views": CLI_VIEWS, "train_views": n_train, "points": N_SPLATS,
+          "seconds": {"write_dataset": write_s, "first_run": first_s, "resumed_run": resume_s,
+                      "render": render_s, "metrics": metrics_s, "load_ply": load_ply_s,
+                      **{k: sum(v) for k, v in watch.seconds.items()}},
+          "step_ms_fresh_host_gt": steps_ms[0], "step_ms_resumed_sh3": steps_ms[1],
+          "render_ms_per_view": 1e3 * (render_s - sum(watch.seconds["render_scene_load"])
+                                       - sum(watch.seconds["render_load_ply"])) / CLI_VIEWS,
+          "logged_l1": l1, "logged_total": total, "results": results,
+          "png_max_abs_err": png_err, "depth_max_abs_err": depth_err,
+          "num_live": int(reloaded.num_live())})
+    shutil.rmtree(scene_dir)
+    shutil.rmtree(model_dir)
+    return launches
+
+
 @torch.no_grad()
 def serve(settings, out_dir: Path):
     """The main path: load a PLY, answer VIEWS render requests."""
@@ -486,30 +850,40 @@ def main() -> None:
         fail("no CUDA device")
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card()
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
     shutil.rmtree(native.BUILD, ignore_errors=True)  # time a cold build
     native.build_all()
+    t_knn = time.perf_counter()
+    native_knn.build_library()  # g++, the host's Morton KNN
+    knn_build_s = time.perf_counter() - t_knn
     # ptxas -v lines of each kernel: registers, shared memory, spills
     ptxas = {n: [line.split(":", 1)[-1].strip() for line in
                  native.library_path(n).with_suffix(".log").read_text().splitlines()
                  if "registers" in line or "spill" in line] for n in native.SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "knn_build_seconds": knn_build_s,
           "libraries": [native.library_path(n).name for n in native.SOURCES],
           "ptxas": ptxas})
 
     settings = api.RasterSettings(W, H, **CAPS)
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)
-    levels = [select_level(lv, a, k) for lv, (a, k) in zip(("L1", "L2", "L3"), selects)]
+    levels, level_counts = zip(*(select_level(lv, k)
+                                 for lv, (_, k) in zip(("L1", "L2", "L3"), selects)))
+    count_levels = [count_level(lv, selects[i][1], level_counts[i])
+                    for i, lv in ((1, "L2"), (2, "L3"))]
+    reduce_infos = reduce_check()
     blend = blend_check(rec3, counts, nty)
     bwd = backward_check(rec3, counts, nty)
     if sys.argv[1:] == ["kernels"]:
         return  # `python3 chip_smoke.py kernels`: build and kernel checks only, no verdict
+
+    t0 = time.perf_counter()
+    probe_launches = probes()
+    probe_s = time.perf_counter() - t0
 
     out_dir = Path(__file__).resolve().parent / ".smoke"
     out_dir.mkdir(exist_ok=True)
@@ -526,15 +900,22 @@ def main() -> None:
 
     t0 = time.perf_counter()
     train_launches = train({k: v for k, v in CAPS.items() if k != "grad_pack_capacity"})
-    emit({"phase": "seconds", "serve": serve_s, "train": time.perf_counter() - t0,
-          "total": time.perf_counter() - t_start})
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli_launches = cli(out_dir)
+    emit({"phase": "seconds", "probe": probe_s, "serve": serve_s, "train": train_s,
+          "cli": time.perf_counter() - t0, "total": time.perf_counter() - t_start})
+
+    def launched(name):
+        return (probe_launches.get(name, 0) + launches.get(name, 0)
+                + train_launches.get(name, 0) + cli_launches.get(name, 0))
 
     emit({"kernels": [
         {"name": "select_values", "route": "cuda",
          "source": "tpu2dgs_torch/csrc/select_values.cu",
          "replaces": "tpu2dgs/raster/select_kernel.py:126",
          "tpu_kernel": "tpu2dgs/raster/select_kernel.py:_select_values_kernel",
-         "launches": launches["select_values"] + train_launches["select_values"],
+         "launches": launched("select_values"),
          "max_abs_err": 0.0,
          "ms": sum(lv["ms"] for lv in levels),
          "plain_ms": sum(lv["plain_ms"] for lv in levels),
@@ -547,7 +928,7 @@ def main() -> None:
          "source": "tpu2dgs_torch/csrc/blend_forward.cu",
          "replaces": "tpu2dgs/raster/pallas_backend.py:203",
          "tpu_kernel": "tpu2dgs/raster/pallas_backend.py:_fwd_kernel",
-         "launches": launches["blend_tiles"] + train_launches["blend_tiles"],
+         "launches": launched("blend_tiles"),
          "max_abs_err": blend["max_abs_err"],
          "ms": blend["ms"], "plain_ms": blend["plain_ms"],
          "bound_ms": blend["bound_ms"], "bound_by": blend["bound_by"],
@@ -556,11 +937,39 @@ def main() -> None:
          "source": "tpu2dgs_torch/csrc/blend_backward.cu",
          "replaces": "tpu2dgs/raster/pallas_backend.py:328",
          "tpu_kernel": "tpu2dgs/raster/pallas_backend.py:_bwd_kernel",
-         "launches": train_launches["blend_tiles_backward"],
+         "launches": launched("blend_tiles_backward"),
          "max_abs_err": bwd["max_abs_err"],
          "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
          "library_ms": None},
+        {"name": "select_counts", "route": "cuda",
+         "source": "tpu2dgs_torch/csrc/select_counts.cu",
+         "replaces": "tpu2dgs/raster/select_kernel.py:407",
+         "tpu_kernel": "tpu2dgs/raster/select_kernel.py:_count_kernel",
+         "launches": launched("select_counts"),
+         "max_abs_err": 0.0,
+         "ms": sum(lv["ms"] for lv in count_levels),
+         "plain_ms": sum(lv["plain_ms"] for lv in count_levels),
+         "bound_ms": sum(lv["bound_ms"] for lv in count_levels),
+         "bound_by": "bytes" if all(lv["bound_by"] == "bytes" for lv in count_levels)
+         else "operations",
+         "library_ms": None,
+         "levels": count_levels},
+        *({"name": name, "route": "cuda",
+           "source": "tpu2dgs_torch/csrc/reduce_probe.cu",
+           "replaces": f"scripts/reduce_probe.py:{line}",
+           "tpu_kernel": f"scripts/reduce_probe.py:{tpu}",
+           "launches": launched(name),
+           "max_abs_err": reduce_infos[name]["max_abs_err"],
+           "max_rel_err": reduce_infos[name]["max_rel_err"],
+           "ms": reduce_infos[name]["ms"], "plain_ms": reduce_infos[name]["plain_ms"],
+           "bound_ms": reduce_infos[name]["bound_ms"],
+           "bound_by": reduce_infos[name]["bound_by"],
+           # no one PyTorch call computes it: planes_sum_ms (kernels phase) times
+           # only the row sums of planes that already exist in device memory
+           "library_ms": None}
+          for name, line, tpu in (("reduce_probe_shuffle", 44, "kernel_vpu"),
+                                  ("reduce_probe_mma", 56, "kernel_mxu"))),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

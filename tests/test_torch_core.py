@@ -147,12 +147,18 @@ def test_port_imports_no_jax():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'tpu2dgs' or n.startswith('tpu2dgs.')]\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('tpu2dgs_torch.')]))\n"
+        "mods = {n for n in sys.modules if n.startswith('tpu2dgs_torch.')}\n"
+        "want = {'tpu2dgs_torch.' + n for n in ('cli.config', 'cli.train', 'cli.render',\n"
+        "        'cli.metrics', 'cli.convert', 'data.colmap', 'data.scene', 'data.paths',\n"
+        "        'train.checkpoint', 'train.logging', 'native.knn', 'eval.bin_probe',\n"
+        "        'eval.reduce_probe', 'eval.timing')}\n"
+        "assert want <= mods, sorted(want - mods)\n"
+        "print(len(mods))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout) >= 15  # every module of the package was imported
+    assert int(res.stdout) >= 40  # every module of the package was imported
 
 
 def test_default_device_refuses_cpu_fallback(monkeypatch):

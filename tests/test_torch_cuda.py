@@ -10,7 +10,7 @@ root on the machine with the card:
 import pytest
 import torch
 
-from tpu2dgs_torch.eval import synthetic
+from tpu2dgs_torch.eval import bin_probe, reduce_probe, synthetic
 from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.raster import api, binning, cuda_backend, preprocess, select_kernel
 from tpu2dgs_torch.train import loop
@@ -77,6 +77,47 @@ def test_select_kernel_bit_equal(cuda, case):
     assert native.LAUNCHES["select_values"] == before + 1
     assert torch.equal(cnt, ref_cnt)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", sorted(SELECT_CASES))
+def test_count_kernel_bit_equal(cuda, case):
+    """The count-only kernel against its plain version and against the
+    counts the select kernel returns for the same arguments."""
+    kw = SELECT_CASES[case](cuda)
+    _, k1_counts = select_kernel.select_values(**kw)
+    del kw["cap"]
+    before = native.LAUNCHES["select_counts"]
+    got = select_kernel.select_counts(**kw)
+    ref = select_kernel.select_counts_plain(**kw)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["select_counts"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref) and torch.equal(got, k1_counts)
+
+
+@pytest.mark.parametrize("name", ["reduce_probe_shuffle", "reduce_probe_mma"])
+@pytest.mark.parametrize("steps", [4, 512])
+def test_reduce_probe_kernels_match_plain(cuda, name, steps):
+    """Every element of the row within relative 1e-5 of the plain version
+    (the same float32 terms summed in another order)."""
+    base = reduce_probe.probe_input(1, cuda)
+    before = native.LAUNCHES[name]
+    got = getattr(reduce_probe, name)(base, steps)
+    ref = reduce_probe.reduce_probe_plain(base, steps)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES[name] == before + 1
+    assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+
+
+def test_bin_probe_small(cuda, capsys):
+    """The binning probe end to end on a small scene: it checks the
+    count-only levels against L2's and L3's counts itself."""
+    res = bin_probe.run(cuda, w=256, h=96, n=3000, bin_cap=1024, tile_cap=384, reps=2)
+    assert res["launches"] == {"select_values": 3 * res["passes"],
+                               "select_counts": 2 * res["passes"]}
+    assert set(res["ms"]) == {"L1 columns", "col gather+transpose", "L2 coarse bins (exact)",
+                              "L3 fine tiles (exact)", "L2 count-only", "L3 count-only"}
+    assert res["tile_counts"] > 0 and "L3 count-only" in capsys.readouterr().out
 
 
 def _scene(dev, w=256, h=96, n=3000):

@@ -95,7 +95,28 @@ def test_blend_plain_matches_jax(basic_binning):
         tout = tcb.blend_tiles(rec3_t, counts_t, b["nty"])
     assert plain.call_count == 1
     assert tout.shape == jout.shape
-    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
+    got, want = tout.numpy(), np.asarray(jout)
+    bad = ~np.isclose(got, want, rtol=1e-5, atol=1e-5)
+    if bad.any():
+        # A failure explains itself: how many values, how far, which output
+        # channels and pixels, and whether either side changes from one call
+        # to the next within this process.
+        again_t = tcb.blend_tiles(rec3_t, counts_t, b["nty"]).numpy()
+        again_j = np.asarray(jpb._blend_call(rec3, counts, jnp.zeros((1,), jnp.int32),
+                                             nty=b["nty"], capk=capk, interpret=True))
+        tile, chan, row, col = np.nonzero(bad)
+        where = [f"(tile {t}, pixel ({r},{c}), channel {ch}: port {got[t, ch, r, c]!r} "
+                 f"jax {want[t, ch, r, c]!r})"
+                 for t, ch, r, c in list(zip(tile, chan, row, col))[:8]]
+        pytest.fail(
+            f"{int(bad.sum())} of {bad.size} values differ beyond rtol=atol=1e-5; largest "
+            f"|d| {float(np.abs(got - want)[bad].max())!r}; channels "
+            f"{sorted(set(chan.tolist()))}; tiles {sorted(set(tile.tolist()))[:16]}; first: "
+            f"{'; '.join(where)}. Second call in this process: port bits "
+            f"{'equal' if np.array_equal(again_t, got) else 'DIFFER'}, jax bits "
+            f"{'equal' if np.array_equal(again_j, want) else 'DIFFER'}; largest |d| of the "
+            f"second calls {float(np.abs(again_t - again_j).max())!r}; torch threads "
+            f"{torch.get_num_threads()}")
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))

@@ -10,10 +10,13 @@ counterpart is found under the same path:
              the CUDA blend backend (forward and backward), the render() API
   model/     padded splat parameter store, PLY codec, KNN scale init, Adam,
              densification, conversion of weights and training state
-  train/     losses, the training step and the Trainer
+  train/     losses, the training step and the Trainer, checkpoints, logging
+  data/      COLMAP and Blender scene loading, camera trajectories
+  cli/       train, render, metrics and convert from the command line
   eval/      synthetic bench scenes and a training set, the serve and
-             train profiles
-  native/    nvcc build of csrc/*.cu into shared libraries bound with ctypes
+             train profiles, the binning and reduction probes
+  native/    nvcc build of csrc/*.cu (and g++ build of the host's Morton KNN)
+             into shared libraries bound with ctypes
   csrc/      the CUDA C++ kernels
 
 This package imports neither jax nor tpu2dgs. Its entry points run on the

@@ -30,6 +30,10 @@ def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
 
 
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 def world_to_view(R: np.ndarray, t: np.ndarray, translate=None, scale: float = 1.0) -> np.ndarray:
     """Row-vector world->view matrix (COLMAP R = rotmat(qvec).T, t = tvec)."""
     if translate is None:

@@ -105,6 +105,20 @@ def empty_model(capacity: int, sh_degree: int = 3, device=None) -> SplatModel:
     return SplatModel(params, torch.zeros((capacity,), dtype=torch.bool, device=dev))
 
 
+# Above this many points the init scales come from the Morton KNN on the
+# host (approximate), below it from the exact sweep on the device: the JAX
+# package's choice at the JAX package's size, so both start alike.
+MORTON_KNN_ABOVE = 65536
+
+
+def _knn_dist2(points: np.ndarray, pts: torch.Tensor) -> torch.Tensor:
+    if pts.shape[0] > MORTON_KNN_ABOVE:
+        from tpu2dgs_torch.native import knn as native_knn
+
+        return torch.from_numpy(native_knn.knn_mean_dist2(points)).to(pts.device)
+    return mean_dist2_to_3nn(pts)
+
+
 @torch.no_grad()
 def create_from_pcd(points: np.ndarray, colors: np.ndarray, sh_degree: int = 3,
                     capacity: int | None = None, device=None) -> SplatModel:
@@ -117,7 +131,7 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, sh_degree: int = 3,
     dev = model.xyz.device
     pts = torch.from_numpy(np.asarray(points, np.float32)).to(dev)
     rgb = torch.from_numpy(np.asarray(colors, np.float32)).to(dev)
-    dist2 = torch.clamp(mean_dist2_to_3nn(pts), min=1e-7)
+    dist2 = torch.clamp(_knn_dist2(np.asarray(points, np.float32), pts), min=1e-7)
     model.xyz[:n] = pts
     model.features_dc[:n, 0, :] = sh_lib.rgb_to_sh(rgb)
     model.scaling[:n] = torch.log(torch.sqrt(dist2))[:, None]

@@ -14,7 +14,8 @@ kernel, is kept beside the library as lib<name>-<hash>.log.
 `--fmad=false` keeps every multiply and add separately rounded, as the
 plain PyTorch versions compute them, so the select kernel's coverage test
 decides boundary cases exactly as its plain version does. The file name
-carries a hash of the source and the flags, so an edited source is never
+carries a hash of the source, of every header in csrc/ (two kernels share
+hit_test.cuh) and of the flags, so an edited source or header is never
 served a stale library. `build_all()` starts one nvcc per source, all at
 once, and waits for them together.
 
@@ -35,15 +36,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
-SOURCES = ("select_values", "blend_forward", "blend_backward")
+SOURCES = ("select_values", "blend_forward", "blend_backward", "select_counts",
+           "reduce_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
 # Kernel launches by wrapper name ("select_values", "blend_tiles",
-# "blend_tiles_backward"), counted
-# by launch(); a caller that wants the launches of one run clears it first.
+# "blend_tiles_backward", "select_counts", "reduce_probe_shuffle",
+# "reduce_probe_mma"), counted by launch(); a caller that wants the launches
+# of one run clears it first.
 LAUNCHES: Counter = Counter()
 
 
@@ -57,8 +60,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return BUILD / f"lib{name}-{tag}.so"
 
 

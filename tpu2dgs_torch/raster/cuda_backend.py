@@ -536,6 +536,87 @@ _REC_PADS = tuple(
     for c in range(REC))
 
 
+CBY = 4  # a coarse bin is one tile column wide and CBY tile rows high
+
+
+def _level_caps(k: int, bin_cap: int, cap: int, col_cap: int):
+    """(col_cap, bin_capk, capk): the output capacities of the three
+    levels for K compacted splats."""
+    col_cap = _round128(min(col_cap, _round128(k)))
+    bin_capk = _round128(min(bin_cap, col_cap))
+    return col_cap, bin_capk, _round_group(min(cap, bin_capk))
+
+
+def _l1_args(x0, x1, y0, y1, n_vis, nbx, nty, ids=None) -> dict:
+    """L1's select arguments (all but `cap`): one row per BX-wide screen
+    column over the full image height, AABB test. The record-row id rides
+    as an f32 channel (exact: ids < 2^24)."""
+    dev = x0.device
+    f32 = torch.float32
+    if ids is None:
+        g0 = torch.arange(x0.shape[0], dtype=f32, device=dev)[None, :]
+    else:
+        g0 = ids.to(f32)[None, :]
+    y_lo = torch.zeros((nbx,), dtype=f32, device=dev)
+    cix = torch.arange(nbx, dtype=f32, device=dev)
+    return dict(
+        row_rects=(cix * BX, cix * BX + (BX - 1), y_lo, y_lo + (nty * BY - 1)),
+        cand_channels=(x0[None], x1[None], y0[None], y1[None], g0),
+        parent_of_row=torch.zeros((nbx,), dtype=torch.int32, device=dev),
+        parent_counts=n_vis.to(torch.int32).expand(nbx))
+
+
+def _column_lists(rec_sg, cchan, col_cnt):
+    """Column record lists (nbx, NCH, col_cap) from L1's output: the one
+    gather of the design. Channel 21 is stamped with the record-row id;
+    the tail past each column's count is overwritten with never-hit pad
+    records (slot pad 0 would otherwise gather live record 0 into L2)."""
+    dev = cchan.device
+    col_cap = cchan.shape[2]
+    slot_f = cchan[:, 4]                                   # (nbx, col_cap)
+    rec_col = rec_sg[slot_f.to(torch.int64)].permute(0, 2, 1).contiguous()
+    rec_col[:, 21, :] = slot_f
+    live_col = (torch.arange(col_cap, device=dev)
+                < torch.clamp(col_cnt, max=col_cap)[:, None])[:, None, :]
+    pads = torch.tensor(_REC_PADS, dtype=torch.float32, device=dev)[None, :, None]
+    return torch.where(live_col, rec_col, pads)
+
+
+def _l2_args(l2_in, col_cnt, nbx, nty) -> dict:
+    """L2's select arguments (all but `cap`): coarse bins (column-major)
+    from their column's candidates, exact coverage."""
+    dev = l2_in.device
+    f32 = torch.float32
+    nby_c = -(-nty // CBY)
+    bi = torch.arange(nby_c * nbx, dtype=torch.int64, device=dev)
+    bix = (bi // nby_c).to(f32)
+    by0 = (bi % nby_c).to(f32) * (BY * CBY)
+    bin_parent = bi // nby_c
+    return dict(
+        row_rects=(bix * BX, bix * BX + (BX - 1), by0, by0 + (BY * CBY - 1)),
+        cand_channels=l2_in, parent_of_row=bin_parent,
+        parent_counts=torch.clamp(col_cnt, max=l2_in.shape[2])[bin_parent],
+        box_idx=None, exact_idx=_EXACT_IDX, pad_vals=_REC_PADS)
+
+
+def _l3_args(bchan, bin_counts, nbx, nty) -> dict:
+    """L3's select arguments (all but `cap`): 16x128 tiles (column-major)
+    from their bin's candidates, exact coverage."""
+    dev = bchan.device
+    f32 = torch.float32
+    nby_c = -(-nty // CBY)
+    t = torch.arange(nty * nbx, dtype=torch.int64, device=dev)
+    tix, tiy = t // nty, t % nty
+    bin_of_tile = tix * nby_c + tiy // CBY
+    tx0 = (tix * BX).to(f32)
+    ty0 = (tiy * BY).to(f32)
+    return dict(
+        row_rects=(tx0, tx0 + (BX - 1), ty0, ty0 + (BY - 1)),
+        cand_channels=bchan, parent_of_row=bin_of_tile,
+        parent_counts=torch.clamp(bin_counts, max=bchan.shape[2])[bin_of_tile],
+        box_idx=None, exact_idx=_EXACT_IDX, pad_vals=_REC_PADS)
+
+
 def _bin_records(x0, x1, y0, y1, n_vis, rec_sg, nbx, nty, bin_cap, cap,
                  tile_row0=0, col_cap=32768, ids=None, plain=False):
     """Three-level record-carrying binning: columns -> coarse bins -> tiles.
@@ -556,71 +637,17 @@ def _bin_records(x0, x1, y0, y1, n_vis, rec_sg, nbx, nty, bin_cap, cap,
       L2: coarse bins (1 column x 4 tile rows, column-major) select full
           records from their column's candidates under the exact test.
       L3: 16x128 tiles select from their bin's candidates, exact test.
+
+    The levels' arguments come from _l1_args, _column_lists, _l2_args and
+    _l3_args, which eval/bin_probe.py times one by one.
     """
     if tile_row0 != 0:
         raise NotImplementedError("tile-row strips come with the multi-device slice")
     select = select_kernel.select_values_plain if plain else select_kernel.select_values
-    dev = x0.device
-    f32 = torch.float32
-    cby = 4  # coarse bin = (BX, 4*BY) px
-    nby_c = -(-nty // cby)
+    col_cap, bin_capk, capk = _level_caps(x0.shape[0], bin_cap, cap, col_cap)
 
-    kp = _round128(x0.shape[0])
-    col_cap = _round128(min(col_cap, kp))
-    bin_capk = _round128(min(bin_cap, col_cap))
-    capk = _round_group(min(cap, bin_capk))
-
-    # L1: columns over the full image height, AABB test. The record-row id
-    # rides as an f32 channel (exact: ids < 2^24).
-    if ids is None:
-        g0 = torch.arange(x0.shape[0], dtype=f32, device=dev)[None, :]
-    else:
-        g0 = ids.to(f32)[None, :]
-    y_lo = torch.zeros((nbx,), dtype=f32, device=dev)
-    y_hi = y_lo + (nty * BY - 1)
-    cix = torch.arange(nbx, dtype=f32, device=dev)
-    cchan, col_cnt = select(
-        (cix * BX, cix * BX + (BX - 1), y_lo, y_hi),
-        (x0[None], x1[None], y0[None], y1[None], g0),
-        torch.zeros((nbx,), dtype=torch.int32, device=dev), col_cap,
-        parent_counts=n_vis.to(torch.int32).expand(nbx))
-
-    # Column record lists: the one gather of the design. Channel 21 is
-    # stamped with the record-row id; the tail past each column's count is
-    # overwritten with never-hit pad records (slot pad 0 would otherwise
-    # gather live record 0 into L2).
-    slot_f = cchan[:, 4]                                   # (nbx, col_cap)
-    rec_col = rec_sg[slot_f.to(torch.int64)].permute(0, 2, 1).contiguous()
-    rec_col[:, 21, :] = slot_f
-    live_col = (torch.arange(rec_col.shape[2], device=dev)
-                < torch.clamp(col_cnt, max=col_cap)[:, None])[:, None, :]
-    pads = torch.tensor(_REC_PADS, dtype=f32, device=dev)[None, :, None]
-    l2_in = torch.where(live_col, rec_col, pads)           # (nbx, NCH, col_cap)
-
-    # L2: coarse bins from their column's candidates, exact coverage.
-    nb = nby_c * nbx
-    bi = torch.arange(nb, dtype=torch.int64, device=dev)
-    bix = (bi // nby_c).to(f32)
-    biy = (bi % nby_c).to(f32)
-    by0 = biy * (BY * cby)
-    by1 = by0 + (BY * cby - 1)
-    bin_parent = bi // nby_c
-    bchan, bin_counts = select(
-        (bix * BX, bix * BX + (BX - 1), by0, by1),
-        l2_in, bin_parent, bin_capk,
-        parent_counts=torch.clamp(col_cnt, max=col_cap)[bin_parent],
-        box_idx=None, exact_idx=_EXACT_IDX, pad_vals=_REC_PADS)
-
-    # L3: fine tiles from their bin's candidates, exact coverage.
-    t = nty * nbx
-    tix = torch.arange(t, dtype=torch.int64, device=dev) // nty
-    tiy = torch.arange(t, dtype=torch.int64, device=dev) % nty
-    bin_of_tile = tix * nby_c + tiy // cby
-    tx0 = (tix * BX).to(f32)
-    ty0 = (tiy * BY).to(f32)
-    rec3, counts = select(
-        (tx0, tx0 + (BX - 1), ty0, ty0 + (BY - 1)),
-        bchan, bin_of_tile, capk,
-        parent_counts=torch.clamp(bin_counts, max=bin_capk)[bin_of_tile],
-        box_idx=None, exact_idx=_EXACT_IDX, pad_vals=_REC_PADS)
+    cchan, col_cnt = select(cap=col_cap, **_l1_args(x0, x1, y0, y1, n_vis, nbx, nty, ids))
+    l2_in = _column_lists(rec_sg, cchan, col_cnt)           # (nbx, NCH, col_cap)
+    bchan, bin_counts = select(cap=bin_capk, **_l2_args(l2_in, col_cnt, nbx, nty))
+    rec3, counts = select(cap=capk, **_l3_args(bchan, bin_counts, nbx, nty))
     return rec3, counts, bin_counts, col_cnt

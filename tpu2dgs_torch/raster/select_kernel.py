@@ -10,6 +10,9 @@ rectangle?), carrying every channel through, so binning levels chain with
 no gathers between them and the last level's output is the per-tile
 record array the blend kernel reads.
 
+`select_counts` returns only the per-row totals of the same test (the
+counterpart of the TPU kernel `_count_kernel`, csrc/select_counts.cu).
+
 `select_values` dispatches by device: a CPU tensor runs
 `select_values_plain` (a vectorized hit matrix + `binning.first_k_hits`),
 a CUDA tensor launches the kernel in csrc/select_values.cu. The kernel
@@ -131,7 +134,9 @@ def _prepare(row_rects, cand_channels, parent_of_row, cap, parent_counts,
     return rects, stacked, parent, pcnt, pad_vals
 
 
-def _plain(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
+def _walked_hits(rects, stacked, parent, pcnt, box_idx, exact_idx):
+    """(R, M) bool: which candidates of its parent list each row hits, over
+    the candidates it walks. Both plain versions start from it."""
     rx0, rx1, ry0, ry1 = (a[:, None] for a in rects)
     m = stacked.shape[-1]
     par = parent.long()
@@ -148,7 +153,12 @@ def _plain(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
     # Only whole 1024-candidate macro blocks up to the parent's count are
     # walked; hits past the count inside the last block still count.
     walk = (torch.clamp(pcnt.long(), 0, m) + MACRO - 1) // MACRO * MACRO
-    hit = hit & (torch.arange(m, device=hit.device)[None, :] < walk[:, None])
+    return hit & (torch.arange(m, device=hit.device)[None, :] < walk[:, None])
+
+
+def _plain(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
+    hit = _walked_hits(rects, stacked, parent, pcnt, box_idx, exact_idx)
+    par = parent.long()
     pos, valid, counts = first_k_hits(hit, cap)
     vals = stacked[par[:, None, None],
                    torch.arange(stacked.shape[1], device=hit.device)[None, :, None],
@@ -157,16 +167,23 @@ def _plain(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
     return torch.where(valid[:, None, :], vals, pads[None, :, None]), counts
 
 
-def _launch(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
+def _check_rows(rects, stacked, parent, pcnt) -> int:
+    """Raise unless every row array is (R,) on the candidates' device; R."""
     dev = stacked.device
     for name, a in (("parent_of_row", parent), ("parent_counts", pcnt),
                     *(("row_rects", x) for x in rects)):
         if a.device != dev:
             raise ValueError(f"{name} on {a.device}, candidates on {dev}")
     r = rects[0].shape[0]
-    _, n_chan, m = stacked.shape
     if not all(a.shape == (r,) for a in (parent, pcnt, *rects)):
         raise ValueError("row arrays must all be (R,)")
+    return r
+
+
+def _launch(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
+    dev = stacked.device
+    r = _check_rows(rects, stacked, parent, pcnt)
+    _, n_chan, m = stacked.shape
     if n_chan > 32:
         raise ValueError(f"the kernel carries at most 32 channels, got {n_chan}")
     out = torch.empty((r, n_chan, cap), dtype=torch.float32, device=dev)
@@ -246,3 +263,76 @@ def select_values_plain(row_rects, cand_channels, parent_of_row, cap: int,
     """The plain PyTorch version of `select_values`, on any device."""
     return _select(_plain, row_rects, cand_channels, parent_of_row, cap,
                    parent_counts, pad_vals, box_idx, exact_idx)
+
+
+# ---------------------------------------------------------------------------
+# Count-only select: the same hit test, nothing carried.
+# ---------------------------------------------------------------------------
+
+_COUNT_ARGTYPES = [_P] * 8 + [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2 + [_I, _P]
+# Blocks the count kernel aims to keep in flight: a row is split over enough
+# 256-thread blocks to give each of an H100's 132 SMs about four.
+_COUNT_BLOCKS = 4 * 132
+
+
+def _count_plain(rects, stacked, parent, pcnt, box_idx, exact_idx):
+    hit = _walked_hits(rects, stacked, parent, pcnt, box_idx, exact_idx)
+    return torch.sum(hit, dim=1, dtype=torch.int32)
+
+
+def _count_launch(rects, stacked, parent, pcnt, box_idx, exact_idx):
+    dev = stacked.device
+    r = _check_rows(rects, stacked, parent, pcnt)
+    _, n_chan, m = stacked.shape
+    counts = torch.empty((r,), dtype=torch.int32, device=dev)  # the launcher zeroes it
+    box = None if box_idx is None else (ctypes.c_int * 4)(*box_idx)
+    exact = None if exact_idx is None else (ctypes.c_int * 13)(*exact_idx)
+    splits = max(1, min(m // 256, -(-_COUNT_BLOCKS // max(r, 1))))
+    fn = native.function("select_counts", "select_counts_launch", _COUNT_ARGTYPES)
+    native.launch(
+        fn, stacked.data_ptr(), parent.data_ptr(), pcnt.data_ptr(),
+        *(a.data_ptr() for a in rects), counts.data_ptr(),
+        r, n_chan, m, splits, box, exact, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream, what="select_counts")
+    return counts
+
+
+def _count(impl, row_rects, cand_channels, parent_of_row, parent_counts, pad_vals,
+           box_idx, exact_idx):
+    rects, stacked, parent, pcnt, _ = _prepare(
+        row_rects, cand_channels, parent_of_row, LB, parent_counts, pad_vals, box_idx)
+    if box_idx is None and exact_idx is None:
+        raise ValueError("select_counts needs box_idx or exact_idx")
+    if exact_idx is not None and len(exact_idx) != 13:
+        raise ValueError("exact_idx needs 13 channel indices")
+    return impl(rects, stacked, parent, pcnt, box_idx, exact_idx)
+
+
+def select_counts(row_rects, cand_channels, parent_of_row, parent_counts=None,
+                  pad_vals=None, box_idx=(0, 1, 2, 3), exact_idx: tuple | None = None):
+    """Per-row TOTAL hit counts under the same tests and the same walk as
+    `select_values`, without compacting anything: bit-equal to the counts
+    `select_values` returns for the same arguments (which take no `cap`
+    here). Returns (R,) int32.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    (csrc/select_counts.cu, the counterpart of the TPU kernel
+    `_count_kernel`) or raises."""
+    dev = (cand_channels[0] if isinstance(cand_channels, (tuple, list))
+           else cand_channels).device
+    if dev.type == "cpu":
+        impl = _count_plain
+    elif dev.type == "cuda":
+        impl = _count_launch
+    else:
+        raise ValueError(f"select_counts runs on cpu or cuda, not {dev}")
+    return _count(impl, row_rects, cand_channels, parent_of_row, parent_counts,
+                  pad_vals, box_idx, exact_idx)
+
+
+def select_counts_plain(row_rects, cand_channels, parent_of_row, parent_counts=None,
+                        pad_vals=None, box_idx=(0, 1, 2, 3),
+                        exact_idx: tuple | None = None):
+    """The plain PyTorch version of `select_counts`, on any device."""
+    return _count(_count_plain, row_rects, cand_channels, parent_of_row, parent_counts,
+                  pad_vals, box_idx, exact_idx)

@@ -213,6 +213,7 @@ class Trainer:
         profile_steps: tuple[int, int] = (100, 110),
         max_caps: Optional[dict] = None,
         gui=None,
+        gt_cache_mb: Optional[float] = None,
     ):
         if mesh is not None or shard_splats:
             raise NotImplementedError("multi-device training is not ported yet")
@@ -266,11 +267,26 @@ class Trainer:
         self.cap_growth_events: list[tuple[int, str, int]] = []
         self.last_densify: Optional[densify_lib.DensifyInfo] = None
         self._cam_arrays = [c.arrays(self.device) for c in cameras]
-        # Ground-truth images: staged on the device once.
-        self._gt_images = [
-            None if c.image is None
-            else torch.from_numpy(np.asarray(c.image, np.float32)).to(self.device)
-            for c in cameras]
+        # Ground-truth images: staged on the device once when they fit the
+        # budget `gt_cache_mb` (None: no budget). A set over the budget
+        # stays on the host, in pinned memory where there is a GPU, and the
+        # views the camera shuffle will ask for next are copied ahead on a
+        # side stream while the current step computes: device memory for a
+        # few images whatever the size of the set.
+        host = [None if c.image is None
+                else torch.from_numpy(np.ascontiguousarray(c.image, np.float32))
+                for c in cameras]
+        total_mb = sum(im.numel() * 4 / 1e6 for im in host if im is not None)
+        self.gt_prestaged = gt_cache_mb is None or total_mb <= gt_cache_mb
+        if self.gt_prestaged:
+            self._gt_images = [None if im is None else im.to(self.device) for im in host]
+        else:
+            cuda = self.device.type == "cuda"
+            self._gt_host = [im.pin_memory() if cuda and im is not None else im
+                             for im in host]
+            self._gt_stream = torch.cuda.Stream(self.device) if cuda else None
+            # view index -> (image on the device, event of its copy or None)
+            self._gt_prefetch: dict[int, tuple] = {}
 
     # -- helpers -----------------------------------------------------------
 
@@ -284,6 +300,48 @@ class Trainer:
         if not self._cam_stack:
             self._cam_stack = list(self.rng.permutation(len(self.cameras)))
         return int(self._cam_stack.pop())
+
+    def _peek_camera_indices(self, k: int) -> list[int]:
+        """The next up-to-k indices _next_camera_index will return
+        (refilling the shuffled stack if empty): the prefetch targets.
+        Looks only within the current epoch's stack: the next epoch's
+        permutation is not drawn early."""
+        if not self._cam_stack:
+            self._cam_stack = list(self.rng.permutation(len(self.cameras)))
+        return [int(x) for x in self._cam_stack[-k:][::-1]]
+
+    def _upload_gt(self, ci: int) -> tuple:
+        """Start the copy of view ci's ground truth to the device: on the
+        side stream where there is one, so it overlaps the compute."""
+        im = self._gt_host[ci]
+        if im is None or self._gt_stream is None:
+            return (None if im is None else im.to(self.device)), None
+        with torch.cuda.stream(self._gt_stream):
+            arr = im.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._gt_stream)
+        return arr, done
+
+    def _gt_for(self, ci: int):
+        """Ground truth of view ci on the device. Under a gt_cache_mb
+        budget: take the copy made ahead (or upload now on a miss), make
+        the computing stream wait for it, and start the copies of the
+        upcoming views, the whole next batch when camera_batch > 1."""
+        if self.gt_prestaged:
+            return self._gt_images[ci]
+        hit = self._gt_prefetch.pop(ci, None)
+        arr, done = hit if hit is not None else self._upload_gt(ci)
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)         # no read before the copy has landed
+            arr.record_stream(cur)       # nor reuse of its memory before the read
+        depth = max(3, self.cfg.camera_batch)
+        for nxt in self._peek_camera_indices(depth):
+            if len(self._gt_prefetch) >= depth:
+                break
+            if nxt not in self._gt_prefetch:
+                self._gt_prefetch[nxt] = self._upload_gt(nxt)
+        return arr
 
     def _current_cap(self, kwarg: str) -> int:
         val = self.raster_kwargs.get(kwarg)
@@ -361,7 +419,7 @@ class Trainer:
             self.model, self.adam, metrics = train_step(
                 self._settings(), self.opt_cfg, cfg.lambda_dssim, self.spatial_lr_scale,
                 self.model, self.adam, [self._cam_arrays[i] for i in idxs],
-                [self._gt_images[i] for i in idxs], bg, float(it), lam_n, lam_d)
+                [self._gt_for(i) for i in idxs], bg, float(it), lam_n, lam_d)
 
             # Adaptive cap growth: consume the overflow counters at the
             # densification cadence (one host sync per interval).
