@@ -138,6 +138,13 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and bool((a.view(torch.int32) == b.view(torch.int32)).all())
 
 
+def bound(bytes_: int, ops: int) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the f32 operations over the peak rate."""
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def record_calls(module, name, log):
     """Patch module.name with a wrapper that logs its (args, kwargs)."""
     orig = getattr(module, name)
@@ -221,12 +228,11 @@ def select_level(level, kwargs):
     rows, n_chan = got.shape[0], got.shape[1]
     bytes_ = 4 * (read * n_test + rows * n_chan * cap + rows * 7)
     ops = int(walked.sum()) * test_ops
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    bound_ms, bound_by = bound(bytes_, ops)
     info = dict(level=level, rows=rows, out_shape=list(got.shape), cap=cap,
                 walked=int(walked.sum()), hits=int(cnt.sum()), max_count=int(cnt.max()),
-                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=0.0)
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=0.0)
     emit({"phase": "kernels", "kernel": "select_values", **info})
     return info, cnt
 
@@ -254,10 +260,10 @@ def count_level(level, kwargs, k1_counts):
     rows = got.shape[0]
     bytes_ = 4 * (read * n_test + rows * 7)
     ops = int(walked.sum()) * test_ops
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    bound_ms, bound_by = bound(bytes_, ops)
     info = dict(level=level, rows=rows, walked=int(walked.sum()), hits=int(got.sum()),
-                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", max_abs_err=0.0)
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=0.0)
     emit({"phase": "kernels", "kernel": "select_counts", **info})
     return info
 
@@ -283,7 +289,7 @@ def reduce_check():
     ops = steps * (reduce_probe.NPLANES * reduce_probe.BY * reduce_probe.BX * 3
                    + reduce_probe.NPLANES * reduce_probe.BX * 2)
     bytes_ = 4 * (reduce_probe.BY * reduce_probe.BX + reduce_probe.BX)
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    bound_ms, bound_by = bound(bytes_, ops)
     infos = {}
     for name in ("reduce_probe_shuffle", "reduce_probe_mma"):
         fn = getattr(reduce_probe, name)
@@ -298,10 +304,54 @@ def reduce_check():
         infos[name] = dict(steps=steps, acc0=float(got[0]), plain_acc0=float(ref[0]),
                            max_rel_err=rel, max_abs_err=float((got - ref).abs().max()),
                            ms=ms, ns_per_set=ms * 1e6 / steps, plain_ms=plain_ms,
-                           planes_sum_ms=planes_sum_ms, bound_ms=max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+                           planes_sum_ms=planes_sum_ms, bound_ms=bound_ms, bound_by=bound_by)
         emit({"phase": "kernels", "kernel": name, **infos[name]})
     return infos
+
+
+def pair_counts(rec3, counts, out, nty) -> tuple[int, int]:
+    """(hit pairs, blended pairs) of the lists: (record, pixel) pairs that
+    pass the blend's hit test at or before their tile's last contributor,
+    and of those the pairs that blended (at or before the pixel's own last
+    contributor). All tiles in lockstep, the forward's hit test."""
+    t = rec3.shape[0]
+    px, py = cuda_backend._tile_planes(t, nty, rec3.device)
+    last = out[:, 12]
+    tile_last = last.amax(dim=(1, 2))
+    hits = torch.zeros((), dtype=torch.int64, device=rec3.device)
+    blended = torch.zeros((), dtype=torch.int64, device=rec3.device)
+    for j in range(int(last.max()) + 1):
+        r = [rec3[:, k, j, None, None] for k in range(21)]
+        hit = cuda_backend._splat_response(r, px, py)[2]
+        hit = hit & ((j < counts) & (float(j) <= tile_last))[:, None, None]
+        hits += torch.sum(hit)
+        blended += torch.sum(hit & (float(j) <= last))
+    return int(hits), int(blended)
+
+
+def cull_share(rec3, counts, nty, rows=cuda_backend.BY) -> float:
+    """Share of the live (record, block) pairs that exact coverage keeps:
+    with rows = 16 the blocks are the 16x16 sub-tiles, with rows = 4 the
+    16x4 blocks of the warps, the cull the blend kernels run."""
+    kept = int(cuda_backend.subtile_coverage(rec3, counts, nty, rows).sum())
+    blocks = cuda_backend.BX // cuda_backend.SUB * (cuda_backend.BY // rows)
+    return kept / max(1, int(counts.to(torch.int64).sum()) * blocks)
+
+
+def cull_shares(rec3, counts, nty) -> dict:
+    return {"cull_pass_share": cull_share(rec3, counts, nty),
+            "cull_warp_pass_share": cull_share(rec3, counts, nty, rows=4)}
+
+
+def longest_alone(counts, out):
+    """The tile with the longest walk (out channel 12), and the counts and
+    out that leave every other tile empty: a blend kernel given them times
+    that tile alone."""
+    last = out[:, 12].amax(dim=(1, 2))
+    keep = torch.arange(counts.shape[0], device=counts.device) == int(torch.argmax(last))
+    alone_out = out.clone()
+    alone_out[:, 12] = torch.where(keep[:, None, None], out[:, 12], -1.0)
+    return torch.where(keep, counts, 0).to(counts.dtype), alone_out
 
 
 def blend_check(rec3, counts, nty):
@@ -317,37 +367,29 @@ def blend_check(rec3, counts, nty):
     ms = cuda_ms(lambda: cuda_backend.blend_tiles(rec3, counts, nty), reps=20)
     plain_ms = cuda_ms(lambda: cuda_backend.blend_tiles_plain(rec3, counts, nty),
                        reps=2, warmup=1)
+    alone_counts, _ = longest_alone(counts, ref)
+    longest_ms = cuda_ms(lambda: cuda_backend.blend_tiles(rec3, alone_counts, nty), reps=20)
 
     # Bound: a pixel's records must be read up to its tile's last
     # contributor at least; 21 record floats each, read once, the output
-    # written once; BLEND_OPS per (record, pixel) pair.
+    # written once; BLEND_OPS per hit pair, the pairs that must be blended
+    # or killed. `bound_all_pairs_ms` counts every pair up to the tile's
+    # last contributor, as a kernel without a cull computes them.
     t = rec3.shape[0]
     needed = (ref[:, 12].amax(dim=(1, 2)) + 1).clamp(min=0).to(torch.int64)
     pairs = int(needed.sum()) * cuda_backend.BY * cuda_backend.BX
+    hits, blended = pair_counts(rec3, counts, ref, nty)
     bytes_ = 4 * (int(needed.sum()) * 21 + t + got.numel())
-    ops = pairs * BLEND_OPS
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    bound_ms, bound_by = bound(bytes_, hits * BLEND_OPS)
     info = dict(tiles=t, capk=rec3.shape[2], walked=int(counts.sum()),
-                needed=int(needed.sum()), ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                needed=int(needed.sum()), pairs=pairs, hit_pairs=hits, blended_pairs=blended,
+                **cull_shares(rec3, counts, nty), ms=ms, longest_tile_ms=longest_ms,
+                plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_all_pairs_ms=bound(bytes_, pairs * BLEND_OPS)[0],
                 max_abs_err=err, last_flip_frac=flips)
     emit({"phase": "kernels", "kernel": "blend_tiles", **info})
     return info
-
-
-def blended_pairs(rec3, counts, out, nty) -> int:
-    """(record, pixel) pairs that blended: what the backward must
-    differentiate. All tiles in lockstep, the forward's hit test."""
-    t = rec3.shape[0]
-    px, py = cuda_backend._tile_planes(t, nty, rec3.device)
-    last = out[:, 12]
-    total = torch.zeros((), dtype=torch.int64, device=rec3.device)
-    for j in range(int(last.max()) + 1):
-        r = [rec3[:, k, j, None, None] for k in range(21)]
-        hit = cuda_backend._splat_response(r, px, py)[2]
-        total += torch.sum(hit & (float(j) <= last) & (j < counts)[:, None, None])
-    return int(total)
 
 
 def backward_check(rec3, counts, nty):
@@ -408,22 +450,29 @@ def backward_check(rec3, counts, nty):
     scatter_ms = cuda_ms(lambda: cuda_backend.scatter_packed(got, eff, n_rec), reps=20)
     plain_ms = cuda_ms(lambda: cuda_backend.blend_tiles_backward_plain(*args),
                        reps=1, warmup=0)
+    alone_counts, alone_out = longest_alone(counts, out)
+    alone_args = (rec3, alone_counts, off, alone_out, dout, nty, cases["room"])
+    longest_ms = cuda_ms(lambda: cuda_backend.blend_tiles_backward(*alone_args), reps=20)
 
     # Bound: the 22 read channels of every record up to its tile's last
-    # contributor, out and dout read once, the reserved rows written once;
-    # the response of every such (record, pixel) pair and the gradient
-    # arithmetic of the pairs that blended.
+    # contributor, the planes of out (3, 10, 11, 12) and dout (0-9) the walk
+    # reads, each once, the reserved rows written once;
+    # the response of every hit pair and the gradient arithmetic of the pairs
+    # that blended. `bound_all_pairs_ms` takes the response of every pair up
+    # to the tile's last contributor, as a kernel without a cull computes it.
     needed = (out[:, 12].amax(dim=(1, 2)) + 1).clamp(min=0).to(torch.int64)
     pairs = int(needed.sum()) * cuda_backend.BY * cuda_backend.BX
-    blended = blended_pairs(rec3, counts, out, nty)
-    bytes_ = 4 * (int(needed.sum()) * 22 + 2 * t + 2 * out.numel()
+    hits, blended = pair_counts(rec3, counts, out, nty)
+    plane = cuda_backend.BY * cuda_backend.BX
+    bytes_ = 4 * (int(needed.sum()) * 22 + 2 * t + t * plane * (4 + 10)
                   + demand * cuda_backend.OUTREC)
-    ops = pairs * BWD_RESPONSE_OPS + blended * BWD_BLENDED_OPS
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    bound_ms, bound_by = bound(bytes_, hits * BWD_RESPONSE_OPS + blended * BWD_BLENDED_OPS)
     info.update(tiles=t, capk=capk, group=grp, demand=demand, needed=int(needed.sum()),
-                blended_pairs=blended, ms=ms, scatter_ms=scatter_ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                pairs=pairs, hit_pairs=hits, blended_pairs=blended, ms=ms,
+                longest_tile_ms=longest_ms,
+                scatter_ms=scatter_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_all_pairs_ms=bound(bytes_, pairs * BWD_RESPONSE_OPS
+                                         + blended * BWD_BLENDED_OPS)[0],
                 max_abs_err=info["room"]["max_abs_err"])
     emit({"phase": "kernels", "kernel": "blend_tiles_backward", **info})
     return info
@@ -807,10 +856,11 @@ def serve(settings, out_dir: Path):
             for k in range(VIEWS)]
 
     native.LAUNCHES.clear()
-    outs, view_ms, per_view = [], [], []
+    outs, view_ms, per_view, blends = [], [], [], []
     for cam in cams:
         t0 = time.perf_counter()
-        out = api.render(cam, settings, *args, bg, live=model.live)
+        with record_calls(cuda_backend, "blend_tiles", blends):
+            out = api.render(cam, settings, *args, bg, live=model.live)
         torch.cuda.synchronize()
         view_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
@@ -840,6 +890,7 @@ def serve(settings, out_dir: Path):
         fail(f"served render vs plain versions: {diffs}")
     emit({"phase": "serve", "views": VIEWS, "num_live": int(model.num_live()),
           "view_ms": view_ms, "launches": launches, "max_abs_vs_plain": diffs,
+          "cull_pass_share": [cull_shares(*args) for args, _ in blends],
           "alpha_mean": [float(o["rend_alpha"].mean()) for o in outs],
           "overflow": [{k: float(o[k]) for k in OVERFLOW} for o in outs]})
     return launches
@@ -864,10 +915,11 @@ def main() -> None:
     ptxas = {n: [line.split(":", 1)[-1].strip() for line in
                  native.library_path(n).with_suffix(".log").read_text().splitlines()
                  if "registers" in line or "spill" in line] for n in native.SOURCES}
+    occupancy = cuda_backend.blend_occupancy(torch.device("cuda"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "knn_build_seconds": knn_build_s,
           "libraries": [native.library_path(n).name for n in native.SOURCES],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "blend_occupancy": occupancy})
 
     settings = api.RasterSettings(W, H, **CAPS)
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)
@@ -932,7 +984,11 @@ def main() -> None:
          "max_abs_err": blend["max_abs_err"],
          "ms": blend["ms"], "plain_ms": blend["plain_ms"],
          "bound_ms": blend["bound_ms"], "bound_by": blend["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "bound_all_pairs_ms": blend["bound_all_pairs_ms"],
+         "cull_pass_share": blend["cull_pass_share"],
+         "cull_warp_pass_share": blend["cull_warp_pass_share"],
+         "longest_tile_ms": blend["longest_tile_ms"],
+         "occupancy": occupancy["blend_tiles"], "ptxas": ptxas["blend_forward"]},
         {"name": "blend_tiles_backward", "route": "cuda",
          "source": "tpu2dgs_torch/csrc/blend_backward.cu",
          "replaces": "tpu2dgs/raster/pallas_backend.py:328",
@@ -941,7 +997,9 @@ def main() -> None:
          "max_abs_err": bwd["max_abs_err"],
          "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
          "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "bound_all_pairs_ms": bwd["bound_all_pairs_ms"],
+         "longest_tile_ms": bwd["longest_tile_ms"],
+         "occupancy": occupancy["blend_tiles_backward"], "ptxas": ptxas["blend_backward"]},
         {"name": "select_counts", "route": "cuda",
          "source": "tpu2dgs_torch/csrc/select_counts.cu",
          "replaces": "tpu2dgs/raster/select_kernel.py:407",

@@ -13,6 +13,7 @@ import torch
 from tpu2dgs_torch.eval import bin_probe, reduce_probe, synthetic
 from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.raster import api, binning, cuda_backend, preprocess, select_kernel
+from tpu2dgs_torch.raster.common import ALPHA_MIN, CUTOFF, FILTER_INV_SQUARE
 from tpu2dgs_torch.train import loop
 
 pytestmark = pytest.mark.cuda
@@ -138,13 +139,106 @@ def _lists(dev):
     return rec3, torch.clamp(raw, max=rec3.shape[2]).to(torch.int32), nty
 
 
-def test_blend_kernel_matches_plain(cuda):
-    rec3, counts, nty = _lists(cuda)
+def _disk_lists(dev, tiles_x=2, nty=6, count=448, capk=512):
+    """Hand-made lists of screen-aligned disks in depth order: entry j of a
+    tile is a disk of radius 4-8 px (its 3-sigma cutoff 12-24 px) centred in
+    sub-tile r with a weight (r + 1)^2, so sub-tile 7 saturates within the
+    first chunks and sub-tile 0 never does. te2 and fr2 as preprocess
+    states them. (rec3 (T, 24, capk), counts, nty)."""
+    g = torch.Generator().manual_seed(0)
+    t = tiles_x * nty
+    tiles = torch.arange(t)
+    sub = torch.multinomial(torch.arange(1, 9, dtype=torch.float32) ** 2, t * count,
+                            replacement=True, generator=g).reshape(t, count)
+    cx = ((tiles // nty) * 128)[:, None] + 16 * sub + 16 * torch.rand(t, count, generator=g)
+    cy = ((tiles % nty) * 16)[:, None] + 16 * torch.rand(t, count, generator=g)
+    s = 4.0 + 4.0 * torch.rand(t, count, generator=g)
+    op = 0.5 + 0.49 * torch.rand(t, count, generator=g)
+    tau_a2 = 2.0 * torch.log(op / ALPHA_MIN)
+    rec = torch.zeros(t, 24, count)
+    rec[:, 0], rec[:, 6] = 1.0 / s, -cx / s          # pu = (x - cx) / s
+    rec[:, 4], rec[:, 7] = 1.0 / s, -cy / s          # pv = (y - cy) / s
+    rec[:, 8] = 1.0                                  # pw = 1
+    rec[:, 11] = 1.0 + 0.01 * torch.arange(count)    # depth, increasing
+    rec[:, 12:15] = torch.rand(t, 3, count, generator=g)
+    rec[:, 17] = -1.0
+    rec[:, 18], rec[:, 19], rec[:, 20] = op, cx, cy
+    rec[:, 21] = torch.arange(t * count, dtype=torch.float32).reshape(t, count)
+    rec[:, 22] = torch.clamp(tau_a2, 1e-6, CUTOFF * CUTOFF) * 1.001 + 1e-5
+    rec[:, 23] = torch.clamp(tau_a2, min=1e-6) / FILTER_INV_SQUARE * 1.001 + 1e-5
+    pads = torch.tensor(cuda_backend._REC_PADS)[None, :, None].expand(t, 24, capk - count)
+    rec3 = torch.cat([rec, pads], dim=2).contiguous().to(dev)
+    return rec3, torch.full((t,), count, dtype=torch.int32, device=dev), nty
+
+
+def _crafted(dev, case):
+    """Lists with edge cases for the sub-tile cull.
+
+    `empty_subtiles`: the small scene's lists, each tile keeping only the
+    entries that reach none of its sub-tiles 4-7, so those walk empty
+    masks. `saturating`: `_disk_lists`, whose sub-tiles saturate at
+    different chunks or never."""
+    if case == "saturating":
+        return _disk_lists(dev)
+    rec3, counts, nty = _lists(dev)
+    t, nch, capk = rec3.shape
+    cov = cuda_backend.subtile_coverage(rec3, counts, nty)
+    keep = cov.any(dim=1) & ~cov[:, 4:].any(dim=1)
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    rec3 = torch.gather(rec3, 2, order[:, None, :].expand(t, nch, capk))
+    counts = keep.sum(dim=1).to(torch.int32)
+    past = torch.arange(capk, device=dev)[None, :] >= counts[:, None]
+    pads = torch.tensor(cuda_backend._REC_PADS, device=dev)[None, :, None]
+    return torch.where(past[:, None, :], pads, rec3).contiguous(), counts, nty
+
+
+def _blend_matches_plain(rec3, counts, nty):
+    before = native.LAUNCHES["blend_tiles"]
     got = cuda_backend.blend_tiles(rec3, counts, nty)
     ref = cuda_backend.blend_tiles_plain(rec3, counts, nty)
     torch.cuda.synchronize()
+    assert native.LAUNCHES["blend_tiles"] == before + 1
     assert float((got[:, :12] - ref[:, :12]).abs().max()) <= 1e-5
     assert float((got[:, 12] != ref[:, 12]).float().mean()) <= 1e-4
+    return ref
+
+
+def test_blend_kernel_matches_plain(cuda):
+    """Lists that span several staging chunks and reach the capacity."""
+    rec3, counts, nty = _lists(cuda)
+    assert int(counts.max()) == rec3.shape[2] > 4 * cuda_backend.CHUNK
+    _blend_matches_plain(rec3, counts, nty)
+
+
+@pytest.mark.parametrize("case", ["empty_subtiles", "saturating"])
+def test_blend_kernel_subtile_cases(cuda, case):
+    rec3, counts, nty = _crafted(cuda, case)
+    ref = _blend_matches_plain(rec3, counts, nty)
+    # last contributor's chunk per (tile, sub-tile)
+    last = ref[:, 12].reshape(-1, cuda_backend.BY, 8, cuda_backend.SUB).amax(dim=(1, 3))
+    if case == "empty_subtiles":
+        live = counts > 0
+        assert bool(live.any()) and bool((last[live][:, 4:] == -1).all())
+        assert bool((last[live][:, :4] >= 0).any())
+    else:
+        # per tile: some sub-tiles saturated (every pixel's T below 1e-2, where
+        # a kill leaves it), others not
+        sat = ref[:, 3].reshape(-1, cuda_backend.BY, 8, cuda_backend.SUB).amax(dim=(1, 3)) < 1e-2
+        assert bool((sat.any(dim=1) & ~sat.all(dim=1)).all())
+
+
+def test_blend_wrappers_need_24_channels(cuda):
+    """The sub-tile cull reads te2 and fr2 (channels 22, 23)."""
+    rec3, counts, nty = _lists(cuda)
+    short = rec3[:, :22].contiguous()
+    with pytest.raises(ValueError):
+        cuda_backend.blend_tiles(short, counts, nty)
+    out = cuda_backend.blend_tiles(rec3, counts, nty)
+    grp = min(cuda_backend.GROUP, rec3.shape[2])
+    off = cuda_backend._packed_offsets(counts, out, grp)
+    with pytest.raises(ValueError):
+        cuda_backend.blend_tiles_backward(short, counts, off, out, torch.zeros_like(out), nty,
+                                          grp * rec3.shape[0])
 
 
 def test_render_kernels_match_plain(cuda):
@@ -160,15 +254,15 @@ def test_render_kernels_match_plain(cuda):
     assert torch.equal(out["radii"], ref["radii"])
 
 
-@pytest.mark.parametrize("room", ["room", "overflow"])
-def test_backward_kernel_matches_plain(cuda, room):
+def _backward_matches_plain(rec3, counts, nty, room):
     """Packed rows within 1e-3 of each row's largest value (the sum over a
     tile's pixels runs in another order), the slot column and the dropped
-    groups exactly, the scattered gradient within 1e-4 of its largest."""
-    rec3, counts, nty = _lists(cuda)
+    groups exactly, two launches bit-equal, the scattered gradient within
+    1e-4 of its largest."""
+    dev = rec3.device
     out = cuda_backend.blend_tiles(rec3, counts, nty)
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    dout = torch.randn(out.shape, device=cuda, generator=gen)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dout = torch.randn(out.shape, device=dev, generator=gen)
     grp = min(cuda_backend.GROUP, rec3.shape[2])
     eff = cuda_backend._effective_counts(counts, out, grp)
     off = cuda_backend._packed_offsets(counts, out, grp)
@@ -177,19 +271,32 @@ def test_backward_kernel_matches_plain(cuda, room):
     assert (pack_cap < demand) == (room == "overflow")
     before = native.LAUNCHES["blend_tiles_backward"]
     got = cuda_backend.blend_tiles_backward(rec3, counts, off, out, dout, nty, pack_cap)
+    again = cuda_backend.blend_tiles_backward(rec3, counts, off, out, dout, nty, pack_cap)
     ref = cuda_backend.blend_tiles_backward_plain(rec3, counts, off, out, dout, nty, pack_cap)
     torch.cuda.synchronize()
-    assert native.LAUNCHES["blend_tiles_backward"] == before + 1
+    assert native.LAUNCHES["blend_tiles_backward"] == before + 2
     n = min(demand, pack_cap)
+    assert torch.equal(got[:n].view(torch.int32), again[:n].view(torch.int32))
     assert torch.equal(got[:n, 19], ref[:n, 19])
     scale = ref[:n, :19].abs().amax(dim=1).clamp(min=1e-30)
     assert float(((got[:n, :19] - ref[:n, :19]).abs().amax(dim=1) / scale).max()) <= 1e-3
-    k = 3000
+    k = int(rec3[:, 21].max()) + 1  # the record rows the id channel names
     gs = cuda_backend.scatter_packed(got, eff, k)
     rs = cuda_backend.scatter_packed(ref, eff, k)
     assert float((gs - rs).abs().max()) <= 1e-4 * float(rs.abs().max())
     with pytest.raises(ValueError):
         cuda_backend.blend_tiles_backward(rec3, counts, off, out, dout[:, :8], nty, pack_cap)
+
+
+@pytest.mark.parametrize("room", ["room", "overflow"])
+def test_backward_kernel_matches_plain(cuda, room):
+    _backward_matches_plain(*_lists(cuda), room)
+
+
+@pytest.mark.parametrize("room", ["room", "overflow"])
+@pytest.mark.parametrize("case", ["empty_subtiles", "saturating"])
+def test_backward_kernel_subtile_cases(cuda, case, room):
+    _backward_matches_plain(*_crafted(cuda, case), room)
 
 
 def test_training_step_launch_counts(cuda):

@@ -11,160 +11,151 @@
 // m1/m2 and the last contributor index. Output: the 16-channel layout of
 // pallas_backend.py (OUT_CH), out[t, ch, y, x].
 //
-// What bounds it on an H100: operations. Each (record, pixel) pair costs
-// about 90 f32 operations, one expf among them, against 21 record floats
-// read per record for 2048 pixels. Design: one 512-thread block per tile, 4 pixels
-// per thread with their state in registers; records are staged through
-// shared memory 64 at a time (coalesced reads along the channel-major
-// capk axis) and read back as broadcasts. After each chunk,
-// __syncthreads_or over "any pixel alive" ends the walk once the whole tile
-// has saturated; kills are per pixel, so the exit changes work, not
-// outputs. expf (not __expf) and --fmad=false keep the arithmetic close to
-// the plain PyTorch version's.
+// What bounds it on an H100: operations. A pair that hits costs about 90
+// f32 operations, one expf among them; only 2-3% of a list's (record,
+// pixel) pairs hit, and the longest list of a scene is several times its
+// mean. Design: one 128-thread CTA per 16 x 16 sub-tile (8 per tile, all
+// independent: no pixel needs another sub-tile), 2 pixels per thread with
+// their state in registers. Records are staged 64 at a time with cp.async,
+// double-buffered so the next chunk lands while this one is walked; each
+// warp culls the chunk for its 16 x 4 block (blend_common.cuh; about 18% of
+// the entries reach a sub-tile, fewer a block) and walks only the entries
+// it kept, in list order. A pair the cull clears would have added w = 0
+// terms, so the output equals the plain version's. After each chunk __syncthreads_or over "any pixel
+// alive" ends the sub-tile's walk; kills are per pixel, so the exit changes
+// work, not outputs. expf (not __expf) and --fmad=false keep the arithmetic
+// equal to the plain PyTorch version's.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kBY = 16;
-constexpr int kBX = 128;
-constexpr int kThreads = 512;
-constexpr int kPix = kBY * kBX / kThreads;  // pixel rows per thread
-constexpr int kChunk = 64;                  // records staged per step
-constexpr int kRecRead = 21;                // record channels 0:21 are read
-constexpr int kOutCh = 16;
-
-// float32 roundings of tpu2dgs_torch/raster/common.py
-constexpr float kAlphaClamp = 0.9900000095367432f;
-constexpr float kAlphaMin = 0.003921568859368563f;  // 1/255
-constexpr float kCutoff2 = 9.0f;
-constexpr float kFilterInvSquare = 2.0f;
-constexpr float kIntersectNear = 0.20000000298023224f;
-constexpr float kTEps = 9.999999747378752e-05f;
-constexpr float kMedianT = 0.5f;
-constexpr float kDistNear = 0.20000000298023224f;
-constexpr float kDistFar = 100.0f;
-constexpr float kDistSpan = 99.80000305175781f;  // DIST_FAR - DIST_NEAR
+using namespace blend;
 
 struct Pixel {
   float T, r, g, b, dep, n0, n1, n2, med, m1, m2, dist, last;
   bool alive;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// At most 85 registers a thread: six CTAs share an SM.
+__global__ void __launch_bounds__(kThreads, 6)
 blend_forward_kernel(const float* __restrict__ rec3, const int* __restrict__ counts,
                      float* __restrict__ out, int nch, int capk, int nty) {
-  __shared__ float srec[kRecRead][kChunk];
+  __shared__ Chunk stage[2];
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / kSubs;
+  const int sub = blockIdx.x % kSubs;
   const int tid = threadIdx.x;
-  const int lx = tid % kBX;
-  const int ly0 = (tid / kBX) * kPix;
-  const float px = (float)((t / nty) * kBX) + (float)lx;
+  const int lx = pixel_col(tid);
+  const int ly0 = pixel_row0(tid);
+  const float x0 = (float)((t / nty) * kBX + sub * kSubW);
+  const float y0 = (float)((t % nty) * kBY);
+  const float px = x0 + (float)lx;
   float py[kPix];
   Pixel s[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    py[k] = (float)((t % nty) * kBY) + (float)(ly0 + k);
+    py[k] = y0 + (float)(ly0 + k);
     s[k] = Pixel{1.0f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.0f, true};
   }
 
   const int count = min(counts[t], capk);
+  const int n_chunks = (count + kChunk - 1) / kChunk;
   const float* rec = rec3 + (size_t)t * nch * capk;
-  for (int c0 = 0; c0 < count; c0 += kChunk) {
-    for (int i = tid; i < kRecRead * kChunk; i += kThreads) {
-      const int ch = i / kChunk;
-      const int j = c0 + i % kChunk;
-      srec[ch][i % kChunk] = j < count ? rec[(size_t)ch * capk + j] : 0.0f;
-    }
+  if (n_chunks > 0) stage_chunk(stage[0], rec, capk, 0, count);
+  cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    const int c0 = c * kChunk;
+    // Everyone is done with the buffer chunk c + 1 lands in (chunk c - 1's).
     __syncthreads();
-    const int n = min(kChunk, count - c0);
-    for (int kk = 0; kk < n; ++kk) {
-      float r[kRecRead];
-#pragma unroll
-      for (int ch = 0; ch < kRecRead; ++ch) r[ch] = srec[ch][kk];
+    if (c + 1 < n_chunks) {
+      stage_chunk(stage[(c + 1) & 1], rec, capk, c0 + kChunk, count);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c has landed for every thread
+    const Chunk& ch = stage[c & 1];
+    uint64_t todo = cull_warp(ch, c0, count, x0, y0 + (float)((tid >> 5) * kWarpRows));
+    while (todo) {
+      const int kk = __ffsll((long long)todo) - 1;
+      todo &= todo - 1;
+      const Geom g = load_geom(ch, kk);
       const float jj = (float)(c0 + kk);
 #pragma unroll
       for (int k = 0; k < kPix; ++k) {
         Pixel& q = s[k];
-        const float y = py[k];
-        // _splat_response
-        const float pu = px * r[0] + y * r[3] + r[6];
-        const float pv = px * r[1] + y * r[4] + r[7];
-        const float pw = px * r[2] + y * r[5] + r[8];
-        const bool valid = pw != 0.0f;
-        const float inv = valid ? 1.0f / pw : 0.0f;
-        const float su = pu * inv;
-        const float sv = pv * inv;
-        const float rho3d = su * su + sv * sv;
-        const float dx = px - r[19];
-        const float dy = y - r[20];
-        const float rho2d = kFilterInvSquare * (dx * dx + dy * dy);
-        const float rho = rho3d <= rho2d ? rho3d : rho2d;
-        const bool inside = (rho3d <= kCutoff2) | (rho2d <= rho3d);
-        const float depthp = su * r[9] + sv * r[10] + r[11];
-        const float G = expf(-0.5f * rho);
-        const float raw = r[18] * G;
-        const float alpha = isnan(raw) ? raw : (raw < kAlphaClamp ? raw : kAlphaClamp);
-        const bool hit = valid & inside & (depthp >= kIntersectNear) & (alpha >= kAlphaMin);
-        // blend step
-        const bool ok = hit & q.alive;
-        const float test_t = q.T * (1.0f - alpha);
-        const bool kill = ok & (test_t < kTEps);
-        if (kill) q.alive = false;
-        const float a = (ok & !kill) ? alpha : 0.0f;
+        const Response o = splat_response(g, px, py[k]);
+        if (!(o.hit & q.alive)) continue;  // adds w = 0: nothing
+        const float test_t = q.T * (1.0f - o.alpha);
+        if (test_t < kTEps) {
+          q.alive = false;
+          continue;
+        }
+        const float a = o.alpha;
         const float w = a * q.T;
-        const bool blended = a > 0.0f;
-        if (blended & (q.T > kMedianT)) q.med = depthp;
-        if (blended) q.last = jj;
-        const float safe = isnan(depthp) ? depthp : fmaxf(depthp, 1e-6f);
-        const float m = kDistFar * (safe - kDistNear) / (kDistSpan * safe);
+        if (q.T > kMedianT) q.med = o.depthp;
+        q.last = jj;
+        const float m = map_depth(safe_depth(o.depthp));
         q.dist = q.dist + w * (m * m * (1.0f - q.T) + q.m2 - 2.0f * m * q.m1);
         q.m1 = q.m1 + w * m;
         q.m2 = q.m2 + w * m * m;
         q.T = q.T * (1.0f - a);
-        q.r = q.r + w * r[12];
-        q.g = q.g + w * r[13];
-        q.b = q.b + w * r[14];
-        q.dep = q.dep + w * depthp;
-        q.n0 = q.n0 + w * r[15];
-        q.n1 = q.n1 + w * r[16];
-        q.n2 = q.n2 + w * r[17];
+        q.r = q.r + w * ch.rec[12][kk];
+        q.g = q.g + w * ch.rec[13][kk];
+        q.b = q.b + w * ch.rec[14][kk];
+        q.dep = q.dep + w * o.depthp;
+        q.n0 = q.n0 + w * ch.rec[15][kk];
+        q.n1 = q.n1 + w * ch.rec[16][kk];
+        q.n2 = q.n2 + w * ch.rec[17][kk];
       }
     }
     bool any_alive = false;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) any_alive |= s[k].alive;
-    // Also the barrier before the next chunk overwrites srec.
     if (!__syncthreads_or(any_alive)) break;
   }
+  cp_async_wait<0>();  // a walk that ended early leaves no copy in flight
 
-  float* o = out + (size_t)t * kOutCh * kBY * kBX;
+  float* o = out + (size_t)t * kOutCh * kPlane;
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
     const Pixel& q = s[k];
     const float vals[kOutCh] = {q.r, q.g, q.b, q.T, q.dep, q.n0, q.n1, q.n2,
                                 q.med, q.dist, q.m1, q.m2, q.last, 0.f, 0.f, 0.f};
-    const int pix = (ly0 + k) * kBX + lx;
+    const int pix = (ly0 + k) * kBX + sub * kSubW + lx;
 #pragma unroll
-    for (int ch = 0; ch < kOutCh; ++ch) o[ch * kBY * kBX + pix] = vals[ch];
+    for (int c = 0; c < kOutCh; ++c) o[c * kPlane + pix] = vals[c];
   }
 }
 
 }  // namespace
 
-// rec3 (tiles, nch, capk) f32 channel-major record lists, nch >= 21;
-// counts (tiles,) i32; out (tiles, 16, 16, 128) f32.
+// rec3 (tiles, nch, capk) f32 channel-major record lists, nch >= 24 (the
+// cull reads te2 and fr2, channels 22 and 23); counts (tiles,) i32;
+// out (tiles, 16, 16, 128) f32.
 extern "C" int blend_forward_launch(const float* rec3, const int* counts, float* out,
                                     int tiles, int nch, int capk, int nty, int device,
                                     void* stream) {
-  if (nch < kRecRead || nty <= 0) return (int)cudaErrorInvalidValue;
+  if (nch < kStage || nty <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (tiles > 0) {
-    blend_forward_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(rec3, counts, out,
-                                                                      nch, capk, nty);
+    blend_forward_kernel<<<tiles * kSubs, kThreads, 0, (cudaStream_t)stream>>>(
+        rec3, counts, out, nch, capk, nty);
   }
   return (int)cudaGetLastError();
+}
+
+// CTAs of the kernel one SM holds at once.
+extern "C" int blend_forward_occupancy(int device, int* ctas_per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, blend_forward_kernel,
+                                                            kThreads, 0);
 }

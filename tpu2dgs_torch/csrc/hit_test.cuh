@@ -3,6 +3,7 @@
 // rectangle. One copy, included by select_values.cu (which carries the hits'
 // channels) and select_counts.cu (which only counts them), so both decide
 // every candidate with the same instructions: their counts are bit-equal.
+// blend_common.cuh runs `exact_coverage` on the blend kernels' pixel blocks.
 //
 // Compiled with --fmad=false and IEEE division, in the operation order of
 // the plain PyTorch version (raster/select_kernel.py:_exact_coverage).

@@ -14,8 +14,8 @@ kernel, is kept beside the library as lib<name>-<hash>.log.
 `--fmad=false` keeps every multiply and add separately rounded, as the
 plain PyTorch versions compute them, so the select kernel's coverage test
 decides boundary cases exactly as its plain version does. The file name
-carries a hash of the source, of every header in csrc/ (two kernels share
-hit_test.cuh) and of the flags, so an edited source or header is never
+carries a hash of the source, of every header in csrc/ (kernels share
+hit_test.cuh and blend_common.cuh) and of the flags, so an edited source or header is never
 served a stale library. `build_all()` starts one nvcc per source, all at
 once, and waits for them together.
 
@@ -116,10 +116,14 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero CUDA error code returned by a C function."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc}")
+
+
 def launch(fn, *args, what: str) -> None:
     """Call a C launcher, raise on a nonzero cudaGetLastError(), and count
     the launch under `what`."""
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    check(fn(*args), f"{what} kernel launch")
     LAUNCHES[what] += 1

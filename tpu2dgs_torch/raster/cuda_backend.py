@@ -15,6 +15,12 @@ The pipeline of the JAX backend, kept contract for contract:
     (csrc/blend_backward.cu, replacing the TPU `_bwd_kernel`) on CUDA
     tensors, `blend_tiles_backward_plain` on CPU tensors: one packed
     20-float gradient row per walked list entry.
+  * Both kernels cut a tile into 8 sub-tiles of 16x16 pixels, and each warp
+    walks only the entries whose exact coverage reaches its 16x4 block of a
+    sub-tile (plain: `subtile_coverage`); K2 runs one CTA per sub-tile, K3
+    one cluster of 8 CTAs per tile that combines its rows through
+    distributed shared memory. The cull reads te2 and fr2, so both need all
+    24 channels.
   * `BlendTiles`: the autograd function joining the two (the JAX
     backend's custom_vjp `blend_tiles`): the packed rows are scattered
     onto the rows of the differentiable record array `rec_c`.
@@ -66,6 +72,7 @@ REC = 24
 OUT_CH = 16
 BY = 16   # tile pixel rows
 BX = 128  # tile pixel columns
+SUB = 16  # sub-tile width of the blend kernels' cull (BY x SUB pixels)
 CHUNK = 64   # records per early-exit check (the kernel's staging chunk)
 OUTREC = 20  # packed gradient row: d(record channels 0:19) + the record row id
 # The JAX backend's record-staging group: capk and the packed gradient
@@ -142,6 +149,34 @@ def _tile_planes(t, nty, device):
     return px.expand(t, BY, BX), py.expand(t, BY, BX)
 
 
+def subtile_coverage(rec3: torch.Tensor, counts: torch.Tensor, nty: int,
+                     rows: int = BY) -> torch.Tensor:
+    """The blend kernels' cull, plain: (T, BX // SUB * (BY // rows), capk)
+    bool, by default (T, 8, capk).
+
+    Block b of tile t covers pixel columns [SUB r, SUB r + SUB - 1] and rows
+    [rows q, rows q + rows - 1] of the tile, r, q = divmod(b, BY // rows):
+    with rows = BY the 8 sub-tiles of 16x16 pixels, with rows = 4 the 16x4
+    blocks of the kernels' warps. Entry j reaches it when j < counts[t] and
+    the exact coverage test passes on the block's inclusive rectangle, as
+    binning's L3 tests whole tiles. The kernels walk only such pairs; a pair
+    whose bit is clear must miss every pixel of the block. For tests and the
+    smoke run only: the kernels compute it themselves
+    (csrc/blend_common.cuh)."""
+    t, _, capk = rec3.shape
+    dev = rec3.device
+    tiles = torch.arange(t, device=dev)
+    blocks = torch.arange(BX // SUB * (BY // rows), device=dev)
+    r, q = blocks // (BY // rows), blocks % (BY // rows)
+    x0 = ((tiles // nty) * BX)[:, None, None] + (SUB * r)[None, :, None]
+    y0 = ((tiles % nty) * BY)[:, None, None] + (rows * q)[None, :, None]
+    x0, y0 = x0.to(torch.float32), y0.to(torch.float32)
+    hit = select_kernel._exact_coverage(lambda c: rec3[:, c, None, :], _EXACT_IDX,
+                                        x0, x0 + (SUB - 1), y0, y0 + (rows - 1))
+    live = torch.arange(capk, device=dev)[None, :] < counts.to(torch.int64)[:, None]
+    return hit & live[:, None, :]
+
+
 def blend_tiles_plain(rec3: torch.Tensor, counts: torch.Tensor, nty: int) -> torch.Tensor:
     """Plain PyTorch forward blend: all tiles walk their lists in lockstep.
 
@@ -203,8 +238,9 @@ def blend_tiles(rec3: torch.Tensor, counts: torch.Tensor, nty: int) -> torch.Ten
     if rec3.dtype != torch.float32 or rec3.dim() != 3 or not rec3.is_contiguous():
         raise ValueError("rec3 must be a contiguous (T, NCH, capk) float32 tensor")
     t, nch, capk = rec3.shape
-    if nch < 21:
-        raise ValueError(f"rec3 has {nch} channels; the blend reads 21")
+    if nch < REC:
+        raise ValueError(f"rec3 has {nch} channels; the blend reads {REC} (its sub-tile "
+                         "cull reads te2 and fr2)")
     if (counts.dtype != torch.int32 or counts.shape != (t,) or counts.device != dev
             or not counts.is_contiguous()):
         raise ValueError("counts must be a contiguous (T,) int32 tensor on rec3's device")
@@ -358,9 +394,9 @@ def blend_tiles_backward(rec3, counts, off, out, dout, nty: int,
         raise ValueError("rec3 must be a contiguous (T, NCH, capk) float32 tensor")
     t, nch, capk = rec3.shape
     group = min(GROUP, capk)
-    if nch < 22 or capk % group or group % CHUNK or pack_cap % group:
+    if nch < REC or capk % group or group % CHUNK or pack_cap % group:
         raise ValueError(f"rec3 {tuple(rec3.shape)}, pack_cap {pack_cap}: the backward "
-                         "blend reads 22 channels and walks whole staging groups")
+                         f"blend reads {REC} channels and walks whole staging groups")
     for name, a in (("counts", counts), ("off", off)):
         if a.dtype != torch.int32 or a.shape != (t,) or a.device != dev or not a.is_contiguous():
             raise ValueError(f"{name} must be a contiguous (T,) int32 tensor on rec3's device")
@@ -376,6 +412,24 @@ def blend_tiles_backward(rec3, counts, off, out, dout, nty: int,
                   dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
                   what="blend_tiles_backward")
     return dpack
+
+
+def blend_occupancy(device: torch.device) -> dict:
+    """What the card holds at once of each blend kernel (the CUDA
+    occupancy calculator): K2's CTAs per SM; K3's clusters of 8 CTAs on the
+    card, its CTAs per SM and its dynamic shared memory per CTA."""
+    ctas, clusters, bwd_ctas, smem = (ctypes.c_int() for _ in range(4))
+    idx = device.index or 0
+    fn = native.function("blend_forward", "blend_forward_occupancy",
+                         [ctypes.c_int, ctypes.c_void_p])
+    native.check(fn(idx, ctypes.byref(ctas)), what="blend_forward_occupancy")
+    fn = native.function("blend_backward", "blend_backward_occupancy",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 3)
+    native.check(fn(idx, ctypes.byref(clusters), ctypes.byref(bwd_ctas), ctypes.byref(smem)),
+                 what="blend_backward_occupancy")
+    return {"blend_tiles": {"ctas_per_sm": ctas.value},
+            "blend_tiles_backward": {"clusters": clusters.value, "ctas_per_sm": bwd_ctas.value,
+                                     "dynamic_smem_bytes": smem.value}}
 
 
 def scatter_packed(dpack, eff, num_records: int) -> torch.Tensor:
