@@ -170,13 +170,19 @@ def bench_inputs(settings):
     return out, selects, blends[0][0]
 
 
+def select_walk_m(kwargs) -> int:
+    """Candidates per parent list as the kernel sees them: padded to whole
+    macro blocks."""
+    cand = kwargs["cand_channels"]
+    m = (cand[0] if isinstance(cand, (tuple, list)) else cand).shape[-1]
+    return -(-m // select_kernel.MACRO) * select_kernel.MACRO
+
+
 def select_walk(kwargs):
     """What a select level's rows walk and what must be read for them:
     (walked candidates per row, candidates read per parent summed over the
     parents, tested channels, operations per test)."""
-    cand = kwargs["cand_channels"]
-    m = (cand[0] if isinstance(cand, (tuple, list)) else cand).shape[-1]
-    m = -(-m // select_kernel.MACRO) * select_kernel.MACRO
+    m = select_walk_m(kwargs)
     parent = kwargs["parent_of_row"]
     pcnt = kwargs["parent_counts"].to(torch.int64).clamp(0, m)
     walked = (pcnt + select_kernel.MACRO - 1) // select_kernel.MACRO * select_kernel.MACRO
@@ -189,36 +195,24 @@ def select_walk(kwargs):
     return walked, int(per_parent.sum()), n_test, test_ops
 
 
-def launcher_ms(launch, kwargs, cap) -> float:
-    """Device time of a select kernel alone: its arguments prepared once,
-    the launcher called 200 times back to back. `ms` in the lines below is
-    the wrapper's time as a caller pays it, argument handling included,
-    and for kernels this short that is the host's time, not the card's."""
-    box_idx = kwargs.get("box_idx", (0, 1, 2, 3))
-    rects, stacked, parent, pcnt, pads = select_kernel._prepare(
-        kwargs["row_rects"], kwargs["cand_channels"], kwargs["parent_of_row"],
-        cap or select_kernel.LB, kwargs["parent_counts"], kwargs.get("pad_vals"), box_idx)
-    exact_idx = kwargs.get("exact_idx")
-    if cap is None:
-        return cuda_ms(lambda: launch(rects, stacked, parent, pcnt, box_idx, exact_idx),
-                       reps=200)
-    return cuda_ms(lambda: launch(rects, stacked, parent, pcnt, cap, pads, box_idx,
-                                  exact_idx), reps=200)
-
-
 def select_level(level, kwargs):
-    """Hold the select kernel against its plain version on one level."""
+    """Hold the select kernel against its plain version on one level, and
+    two of its launches against each other."""
     got, cnt = select_kernel.select_values(**kwargs)
+    again, again_cnt = select_kernel.select_values(**kwargs)
     ref, ref_cnt = select_kernel.select_values_plain(**kwargs)
     torch.cuda.synchronize()
     if not (bits_equal(got, ref) and torch.equal(cnt, ref_cnt)):
         diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
         fail(f"select {level}: kernel differs from plain ({diff} values, "
              f"counts equal: {torch.equal(cnt, ref_cnt)})")
+    if not (bits_equal(again, got) and torch.equal(again_cnt, cnt)):
+        fail(f"select {level}: two launches on the same inputs differ")
+    del again, ref
     ms = cuda_ms(lambda: select_kernel.select_values(**kwargs), reps=20)
     plain_ms = cuda_ms(lambda: select_kernel.select_values_plain(**kwargs),
                        reps=5, warmup=1)
-    kernel_ms = launcher_ms(select_kernel._launch, kwargs, kwargs["cap"])
+    kernel_ms = bin_probe.alone_ms(select_kernel._launch, kwargs, kwargs["cap"])
 
     # Bound: the tested channels of every parent's walked candidates read
     # once, every output slot and count written once; hit tests of every
@@ -229,8 +223,13 @@ def select_level(level, kwargs):
     bytes_ = 4 * (read * n_test + rows * n_chan * cap + rows * 7)
     ops = int(walked.sum()) * test_ops
     bound_ms, bound_by = bound(bytes_, ops)
+    # The grid the wrapper launched: (row, 1024-candidate chunk) items over
+    # as many CTAs as the card holds at once.
+    sms, per_sm = select_kernel.kernel_occupancy(got.device)
+    plan = select_kernel.chunk_plan(rows, int(select_walk_m(kwargs)), sms, per_sm)
     info = dict(level=level, rows=rows, out_shape=list(got.shape), cap=cap,
                 walked=int(walked.sum()), hits=int(cnt.sum()), max_count=int(cnt.max()),
+                items=plan.items, ctas=plan.ctas, chunk=select_kernel.CHUNK, ctas_per_sm=per_sm,
                 ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=0.0)
     emit({"phase": "kernels", "kernel": "select_values", **info})
@@ -252,7 +251,7 @@ def count_level(level, kwargs, k1_counts):
                  f"{int((got != other).sum())} of {got.numel()} rows")
     ms = cuda_ms(lambda: select_kernel.select_counts(**kwargs), reps=20)
     plain_ms = cuda_ms(lambda: select_kernel.select_counts_plain(**kwargs), reps=5, warmup=1)
-    kernel_ms = launcher_ms(select_kernel._count_launch, kwargs, None)
+    kernel_ms = bin_probe.alone_ms(select_kernel._count_launch, kwargs)
 
     # Bound: as the select kernel's, with one count written per row and no
     # output slots.
@@ -916,10 +915,12 @@ def main() -> None:
                  native.library_path(n).with_suffix(".log").read_text().splitlines()
                  if "registers" in line or "spill" in line] for n in native.SOURCES}
     occupancy = cuda_backend.blend_occupancy(torch.device("cuda"))
+    sms, select_per_sm = select_kernel.kernel_occupancy(torch.device("cuda"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "knn_build_seconds": knn_build_s,
           "libraries": [native.library_path(n).name for n in native.SOURCES],
-          "ptxas": ptxas, "blend_occupancy": occupancy})
+          "ptxas": ptxas, "blend_occupancy": occupancy,
+          "select_occupancy": {"sms": sms, "ctas_per_sm": select_per_sm}})
 
     settings = api.RasterSettings(W, H, **CAPS)
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)
@@ -975,6 +976,11 @@ def main() -> None:
          "bound_by": "bytes" if all(lv["bound_by"] == "bytes" for lv in levels)
          else "operations",
          "library_ms": None,
+         "alone_ms": {lv["level"]: lv["kernel_ms"] for lv in levels},
+         "grid": {lv["level"]: {k: lv[k] for k in ("items", "ctas", "chunk")}
+                  for lv in levels},
+         "occupancy": {"ctas_per_sm": select_per_sm, "sms": sms},
+         "ptxas": ptxas["select_values"],
          "levels": levels},
         {"name": "blend_tiles", "route": "cuda",
          "source": "tpu2dgs_torch/csrc/blend_forward.cu",

@@ -15,6 +15,7 @@ from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.raster import api, binning, cuda_backend, preprocess, select_kernel
 from tpu2dgs_torch.raster.common import ALPHA_MIN, CUTOFF, FILTER_INV_SQUARE
 from tpu2dgs_torch.train import loop
+from test_torch_select_chunks import CASES as CHUNK_CASES  # tests/ is on sys.path
 
 pytestmark = pytest.mark.cuda
 
@@ -61,23 +62,113 @@ def _exact_case(dev):
                 exact_idx=cuda_backend._EXACT_IDX, pad_vals=cuda_backend._REC_PADS)
 
 
+def _l1_case(dev):
+    """L1-shaped: 7 screen columns of an 800x800 image over one parent of
+    131,072 box candidates, dense on the left, so the left columns
+    overflow cap 32,768 and the right ones do not; the walk ends inside a
+    macro block."""
+    g = torch.Generator().manual_seed(1)
+    m = 1 << 17
+    x0 = 800 * torch.rand(1, m, generator=g) ** 2
+    y0 = 800 * torch.rand(1, m, generator=g)
+    x1 = x0 + 5 + 295 * torch.rand(1, m, generator=g)
+    y1 = y0 + 5 + 295 * torch.rand(1, m, generator=g)
+    ids = torch.arange(m, dtype=torch.float32)[None]
+    cix = torch.arange(7, dtype=torch.float32)
+    y_lo = torch.zeros(7)
+    return dict(row_rects=tuple(a.to(dev) for a in (cix * 128, cix * 128 + 127, y_lo,
+                                                    y_lo + 799)),
+                cand_channels=tuple(a.to(dev) for a in (x0, x1, y0, y1, ids)),
+                parent_of_row=torch.zeros(7, dtype=torch.int32, device=dev), cap=32768,
+                parent_counts=torch.full((7,), 120_000, dtype=torch.int32, device=dev))
+
+
 SELECT_CASES = {
     "box": lambda dev: _box_case(dev, 512),
     "box_overflow": lambda dev: _box_case(dev, 128),
     "exact_rec_pads": _exact_case,
+    "l1_columns": _l1_case,
+    # the CPU cases of the chunked compaction (tests/test_torch_select_chunks.py)
+    **{name: build for name, (build, _) in CHUNK_CASES.items()},
 }
 
 
 @pytest.mark.parametrize("case", sorted(SELECT_CASES))
 def test_select_kernel_bit_equal(cuda, case):
+    """Bit-equal to plain, values and TOTAL counts; two launches bit-equal."""
     kw = SELECT_CASES[case](cuda)
     before = native.LAUNCHES["select_values"]
     got, cnt = select_kernel.select_values(**kw)
+    again, again_cnt = select_kernel.select_values(**kw)
     ref, ref_cnt = select_kernel.select_values_plain(**kw)
     torch.cuda.synchronize()
-    assert native.LAUNCHES["select_values"] == before + 1
+    assert native.LAUNCHES["select_values"] == before + 2
+    assert torch.equal(cnt, ref_cnt) and torch.equal(again_cnt, cnt)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+# (SMs, CTAs per SM) posed to the wrapper: grids of 1, 3 and 7 CTAs, so
+# counts and writes interleave in work_at's order and writes wait on counts
+SMALL_GRIDS = [(1, 1), (1, 3), (7, 1)]
+
+
+@pytest.mark.parametrize("grid", SMALL_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("case", sorted(SELECT_CASES))
+def test_select_kernel_small_grids(cuda, monkeypatch, case, grid):
+    """The kernel's own work order over a few CTAs, where every CTA owns
+    many count and write positions: bit-equal to plain, counts included.
+    On one CTA every case (each has two rows or more) reaches the order's
+    alternating part."""
+    kw = SELECT_CASES[case](cuda)
+    rows = kw["parent_of_row"].shape[0]
+    m = -(-kw["cand_channels"][0].shape[-1] // select_kernel.MACRO) * select_kernel.MACRO
+    plan = select_kernel.chunk_plan(rows, m, *grid)
+    assert grid != (1, 1) or plan.positions // 2 > plan.ahead
+    select_kernel.kernel_occupancy(cuda)  # builds the kernel on the real occupancy
+    monkeypatch.setitem(select_kernel._OCCUPANCY, cuda.index or 0, grid)
+    got, cnt = select_kernel.select_values(**kw)
+    ref, ref_cnt = select_kernel.select_values_plain(**kw)
     assert torch.equal(cnt, ref_cnt)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_l1_case_overflows_some_columns(cuda):
+    _, cnt = select_kernel.select_values(**_l1_case(cuda))
+    assert bool((cnt > 32768).any()) and bool((cnt < 32768).any())
+
+
+def test_select_values_makes_no_host_sync(cuda):
+    """One call on bench-level-shaped arguments (M a multiple of 1024):
+    one counted launch and no host synchronisation."""
+    kw = _l1_case(cuda)
+    select_kernel.select_values(**kw)  # builds the kernel, queries its occupancy
+    torch.cuda.synchronize()
+    before = native.LAUNCHES["select_values"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        select_kernel.select_values(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert native.LAUNCHES["select_values"] == before + 1
+    torch.cuda.synchronize()
+
+
+def test_select_values_raises_on_refused_launch(cuda, monkeypatch):
+    """A cooperative grid larger than the card holds is refused: the
+    wrapper raises, counts no launch, and the next launch runs."""
+    kw = _l1_case(cuda)
+    sms, per_sm = select_kernel.kernel_occupancy(cuda)
+    assert 7 * 128 > sms * per_sm  # the case's items outnumber the resident CTAs
+    monkeypatch.setitem(select_kernel._OCCUPANCY, cuda.index or 0, (sms, 8 * per_sm))
+    before = native.LAUNCHES["select_values"]
+    with pytest.raises(RuntimeError, match="select_values"):
+        select_kernel.select_values(**kw)
+    assert native.LAUNCHES["select_values"] == before
+    monkeypatch.undo()
+    got, cnt = select_kernel.select_values(**kw)
+    ref, ref_cnt = select_kernel.select_values_plain(**kw)
+    assert torch.equal(cnt, ref_cnt) and torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.parametrize("case", sorted(SELECT_CASES))

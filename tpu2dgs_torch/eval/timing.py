@@ -22,6 +22,32 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 200, warmup: int = 2) -> float:
+    """Mean device time of fn() with the card running the calls back to
+    back: they are queued behind a spin kernel that outlasts the host's
+    time to queue them, so a call shorter than its host overhead is timed
+    by the card and not by the host. The spin grows fourfold, up to three
+    times, while it ends before the last call is queued."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 26  # about 35 ms at the H100's clocks
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        spun_out = start.query()  # the card reached the calls before all were queued
+        end.synchronize()
+        if not spun_out:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError(f"the host queued {reps} calls slower than a spin of {cycles // 4} cycles")
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi prints them: they
     belong beside every time measured on it."""

@@ -19,11 +19,18 @@ a CUDA tensor launches the kernel in csrc/select_values.cu. The kernel
 replaces the TPU kernel `_select_values_kernel` and is bit-equal to the
 plain version: both copy values, and both evaluate the coverage test with
 separately rounded float32 operations in the same order.
+
+The kernel splits every row's walk into chunks of CHUNK candidates and
+compacts them in two phases (count, then write at ranks fixed by candidate
+order) in one cooperative launch. `chunk_plan` is the grid it launches
+with and `compaction_model` the two phases in plain PyTorch, which the CPU
+tests hold against `select_values_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +41,8 @@ LB = 128           # output capacities are multiples of this
 MACRO = 8 * LB     # candidates walk in whole macro blocks of 1024
 
 BOX_PADS = (1e9, -1e9, 1e9, -1e9)  # never-hit AABB fills for x0, x1, y0, y1
+
+CHUNK = MACRO      # candidates per work item of the select kernel: one macro block
 
 
 def _exact_coverage(chan, exact_idx, rx0, rx1, ry0, ry1):
@@ -134,9 +143,15 @@ def _prepare(row_rects, cand_channels, parent_of_row, cap, parent_counts,
     return rects, stacked, parent, pcnt, pad_vals
 
 
-def _walked_hits(rects, stacked, parent, pcnt, box_idx, exact_idx):
-    """(R, M) bool: which candidates of its parent list each row hits, over
-    the candidates it walks. Both plain versions start from it."""
+def _walked(pcnt, m: int):
+    """(R,) int64: the candidates each row walks, whole macro blocks up to
+    its parent's count (hits past the count inside the last block still
+    count)."""
+    return (torch.clamp(pcnt.long(), 0, m) + MACRO - 1) // MACRO * MACRO
+
+
+def _hits(rects, stacked, parent, box_idx, exact_idx):
+    """(R, M) bool: which candidates of its parent list each row hits."""
     rx0, rx1, ry0, ry1 = (a[:, None] for a in rects)
     m = stacked.shape[-1]
     par = parent.long()
@@ -150,10 +165,15 @@ def _walked_hits(rects, stacked, parent, pcnt, box_idx, exact_idx):
                & (chan(box_idx[2]) <= ry1) & (chan(box_idx[3]) >= ry0))
     if exact_idx is not None:
         hit = hit & _exact_coverage(chan, exact_idx, rx0, rx1, ry0, ry1)
-    # Only whole 1024-candidate macro blocks up to the parent's count are
-    # walked; hits past the count inside the last block still count.
-    walk = (torch.clamp(pcnt.long(), 0, m) + MACRO - 1) // MACRO * MACRO
-    return hit & (torch.arange(m, device=hit.device)[None, :] < walk[:, None])
+    return hit
+
+
+def _walked_hits(rects, stacked, parent, pcnt, box_idx, exact_idx):
+    """(R, M) bool: `_hits` over the candidates each row walks. Both plain
+    versions start from it."""
+    hit = _hits(rects, stacked, parent, box_idx, exact_idx)
+    walk = _walked(pcnt, stacked.shape[-1])
+    return hit & (torch.arange(hit.shape[1], device=hit.device)[None, :] < walk[:, None])
 
 
 def _plain(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
@@ -180,14 +200,162 @@ def _check_rows(rects, stacked, parent, pcnt) -> int:
     return r
 
 
+class ChunkPlan(NamedTuple):
+    """The select kernel's grid for one call."""
+
+    chunks: int     # work items per row: M / CHUNK
+    items: int      # rows x chunks
+    ctas: int       # CTAs of the cooperative grid: min(items, SMs x CTAs per SM)
+    group: int      # rows per group of the work order (`work_order`)
+    ahead: int      # items the counts run ahead of the writes
+    positions: int  # count and write positions of the work order
+    scratch: int    # int32 words of scratch: per item a hit count and CHUNK / 4
+                    # bytes of hit bits, per row a counter of counted chunks
+
+
+def chunk_plan(rows: int, m: int, sms: int, ctas_per_sm: int) -> ChunkPlan:
+    """The grid the select kernel launches with for R=rows rows of M=m
+    candidates (a multiple of MACRO, as `_prepare` pads them), on a device
+    of `sms` SMs that holds `ctas_per_sm` of its CTAs each
+    (`kernel_occupancy`). Host-known shapes only: no device value is read.
+    A group holds enough rows for every CTA to have an item of it, and
+    counts run a group and a wave of CTAs ahead of writes."""
+    chunks = m // CHUNK
+    items = rows * chunks
+    ctas = min(items, sms * ctas_per_sm)
+    group = max(1, min(rows, -(-ctas // chunks)))
+    groups = -(-rows // group)
+    return ChunkPlan(chunks, items, ctas, group, group * chunks + ctas,
+                     2 * groups * group * chunks, items * (1 + CHUNK // 16) + rows)
+
+
+COUNT, WRITE = 1, 2
+
+
+def work_order(plan: ChunkPlan, rows: int):
+    """(kind, row, chunk), each (positions,) int64: the order in which the
+    kernel's CTAs take count and write work (kind COUNT, WRITE, or 0 for a
+    row past the last), the kernel's `work_at`. Items are listed in groups
+    of plan.group rows, chunk-major inside a group; counts run plan.ahead
+    items ahead of writes and, where both are left, alternate with them."""
+    u = plan.group * plan.chunks
+    n = plan.positions // 2
+    d = min(plan.ahead, n)
+    pos = torch.arange(plan.positions)
+    q = pos - d
+    tail = pos >= 2 * n - d
+    odd = (q & 1) == 1
+    kind = torch.where(tail | ((pos >= d) & odd), WRITE, COUNT)
+    idx = torch.where(tail, pos - n,
+                      torch.where(pos < d, pos, torch.where(odd, q >> 1, d + (q >> 1))))
+    g, r = idx // u, idx % u
+    row = g * plan.group + r % plan.group
+    return torch.where(row < rows, kind, 0), row, r // plan.group
+
+
+def walk_slices(pcnt, m: int):
+    """(lo, hi), each (R, M / CHUNK) int64: the candidates [lo, hi) that
+    each chunk of a row tests, the chunk's part of the row's walk. The
+    walk covers whole macro blocks and a chunk is one, so a chunk is
+    either walked whole or not at all."""
+    start = torch.arange(m // CHUNK, device=pcnt.device) * CHUNK
+    walk = _walked(pcnt, m)[:, None]
+    return torch.minimum(start[None, :], walk), torch.minimum(start[None, :] + CHUNK, walk)
+
+
+def pad_slots(totals, cap: int, chunks: int):
+    """(lo, hi), each (R, chunks) int64: the pad slots [lo, hi) that each
+    chunk of a row writes: [min(total, cap), cap) split in order into
+    shares of whole 128-slot blocks counted from min(total, cap) rounded
+    down to 4 slots, so that every share but the first starts on 16 bytes
+    (the kernel's formula)."""
+    filled = torch.clamp(totals.long(), max=cap)
+    base = filled // 4 * 4
+    per = ((cap - base + chunks - 1) // chunks + 127) // 128 * 128
+    ch = torch.arange(chunks, device=totals.device)
+    lo = torch.clamp(base[:, None] + ch[None, :] * per[:, None], max=cap)
+    hi = torch.clamp(lo + per[:, None], max=cap)
+    return torch.maximum(lo, filled[:, None]), hi
+
+
+class Compaction(NamedTuple):
+    """What `compaction_model` computes, phase by phase."""
+
+    out: torch.Tensor         # (R, C, cap) f32, as select_values
+    counts: torch.Tensor      # (R,) int32 TOTAL hits, as select_values
+    chunk_hits: torch.Tensor  # (R, chunks) int32: phase 1's count per work item
+    first_rank: torch.Tensor  # (R, chunks): the row's hits in earlier chunks
+    tested: torch.Tensor      # (R, M) int32: how many chunks tested each candidate
+    writes: torch.Tensor      # (R, cap) int32: how many times each output slot was written
+
+
+def _model(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
+    hit = _hits(rects, stacked, parent, box_idx, exact_idx)
+    r, m = hit.shape
+    dev = hit.device
+    chunks = m // CHUNK
+    lo, hi = walk_slices(pcnt, m)
+    j = torch.arange(m, device=dev)[None, :]
+    # Phase 1: each (row, chunk) tests its slice of the walk and counts.
+    in_chunk = [(j >= lo[:, c, None]) & (j < hi[:, c, None]) for c in range(chunks)]
+    tested = torch.stack(in_chunk).sum(dim=0, dtype=torch.int32)
+    chunk_hits = torch.stack([(hit & s).sum(dim=1, dtype=torch.int32) for s in in_chunk], 1)
+    # Phase 2: a chunk's first rank is the row's hits in earlier chunks.
+    counts = chunk_hits.sum(dim=1, dtype=torch.int32)
+    first = torch.cumsum(chunk_hits, dim=1) - chunk_hits
+    out = torch.full((r, stacked.shape[1], cap), float("nan"), device=dev)
+    writes = torch.zeros((r, cap), dtype=torch.int32, device=dev)
+    pad_lo, pad_hi = pad_slots(counts, cap, chunks)
+    slots = torch.arange(cap, device=dev)[None, :]
+    pads = torch.tensor(pad_vals, dtype=torch.float32, device=dev)[None, :, None]
+    for c in range(chunks):
+        h = hit & in_chunk[c]
+        rank = first[:, c, None] + torch.cumsum(h, dim=1) - 1
+        ri, ji = (h & (rank < cap)).nonzero(as_tuple=True)
+        out[ri, :, rank[ri, ji]] = stacked[parent[ri].long(), :, ji]
+        writes.index_put_((ri, rank[ri, ji]), torch.ones_like(ri, dtype=torch.int32),
+                          accumulate=True)
+        pad = (slots >= pad_lo[:, c, None]) & (slots < pad_hi[:, c, None])
+        out = torch.where(pad[:, None, :], pads, out)
+        writes += pad
+    return Compaction(out, counts, chunk_hits, first, tested, writes)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 10 + [_I] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2 + [
+    ctypes.POINTER(ctypes.c_float), _I, _P]
+# Per CUDA device index: (SMs, CTAs of the select kernel per SM).
+_OCCUPANCY: dict[int, tuple[int, int]] = {}
+
+
+def kernel_occupancy(device: torch.device) -> tuple[int, int]:
+    """(SMs, CTAs per SM) of the select kernel on a CUDA device, queried
+    once per device: the cooperative grid may hold at most their product.
+    Raises where the device cannot launch cooperative kernels."""
+    idx = device.index or 0
+    if idx not in _OCCUPANCY:
+        fn = native.function("select_values", "select_values_occupancy",
+                             [_I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+        ctas, sms = ctypes.c_int(), ctypes.c_int()
+        native.check(fn(idx, ctypes.byref(ctas), ctypes.byref(sms)),
+                     what="select_values_occupancy")
+        _OCCUPANCY[idx] = (sms.value, ctas.value)
+    return _OCCUPANCY[idx]
+
+
 def _launch(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
     dev = stacked.device
     r = _check_rows(rects, stacked, parent, pcnt)
     _, n_chan, m = stacked.shape
     if n_chan > 32:
         raise ValueError(f"the kernel carries at most 32 channels, got {n_chan}")
+    if stacked.data_ptr() % 16:
+        stacked = stacked.clone()  # the kernel loads 4 candidates at a time, 16 bytes
+    plan = chunk_plan(r, m, *kernel_occupancy(dev))
     out = torch.empty((r, n_chan, cap), dtype=torch.float32, device=dev)
     counts = torch.empty((r,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((plan.scratch,), dtype=torch.int32, device=dev)
     box = None if box_idx is None else (ctypes.c_int * 4)(*box_idx)
     exact = None if exact_idx is None else (ctypes.c_int * 13)(*exact_idx)
     pads = (ctypes.c_float * n_chan)(*pad_vals)
@@ -195,15 +363,10 @@ def _launch(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
     native.launch(
         fn, stacked.data_ptr(), parent.data_ptr(), pcnt.data_ptr(),
         *(a.data_ptr() for a in rects), out.data_ptr(), counts.data_ptr(),
-        r, n_chan, m, cap, box, exact, pads, dev.index or 0,
+        scratch.data_ptr(), r, n_chan, m, cap, plan.ctas, plan.group, plan.ahead, box, exact,
+        pads, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream, what="select_values")
     return out, counts
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2 + [
-    ctypes.POINTER(ctypes.c_float), _I, _P]
 
 
 def _select(impl, row_rects, cand_channels, parent_of_row, cap, parent_counts,
@@ -263,6 +426,19 @@ def select_values_plain(row_rects, cand_channels, parent_of_row, cap: int,
     """The plain PyTorch version of `select_values`, on any device."""
     return _select(_plain, row_rects, cand_channels, parent_of_row, cap,
                    parent_counts, pad_vals, box_idx, exact_idx)
+
+
+def compaction_model(row_rects, cand_channels, parent_of_row, cap: int,
+                     parent_counts=None, pad_vals=None, box_idx=(0, 1, 2, 3),
+                     exact_idx: tuple | None = None) -> Compaction:
+    """The select kernel's two-phase compaction in plain PyTorch, on any
+    device, with `select_values`' arguments: each (row, chunk of CHUNK
+    candidates) tests its slice of the walk and counts its hits (phase 1);
+    then it writes its hits from its first rank on (the row's hits in
+    earlier chunks), the ones below cap, and its share of the pad slots
+    (phase 2). `out` and `counts` equal `select_values_plain`'s."""
+    return _select(_model, row_rects, cand_channels, parent_of_row, cap, parent_counts,
+                   pad_vals, box_idx, exact_idx)
 
 
 # ---------------------------------------------------------------------------
