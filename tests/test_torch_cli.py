@@ -6,20 +6,23 @@
   * checkpoints both ways, every array bit-equal under the same keys;
   * the pipeline on the CPU (the kernels' plain versions): cli.train on a
     COLMAP dataset written by the JAX package's writers, a resume from its
-    checkpoint, cli.render --skip_mesh, cli.metrics --no_lpips, and the
-    model directory read back by the JAX package;
+    checkpoint, cli.render's bounded and unbounded meshes (the bounded one
+    held against the JAX package's extractor fed the port's diffuse maps),
+    cli.render --skip_mesh, cli.metrics --no_lpips, and the model directory
+    read back by the JAX package;
   * gt_cache_mb: host-resident ground truth gives the pre-staged run's
     losses exactly;
   * the Morton KNN: bit-equal to the JAX package's (same source and flags),
     and chosen by create_from_pcd above 65,536 points.
 
-The JAX side here is numpy readers and writers and eager array code: no
-render or train step is compiled.
+The JAX side here is numpy readers and writers, eager array code and one
+TSDF fusion: no render or train step is compiled.
 """
 
 import argparse
 import json
 import os
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -278,14 +281,99 @@ def test_resume_from_checkpoint(trained, tmp_path, monkeypatch):
     assert float((first.model.xyz.detach() - seen["xyz"]).abs().max()) > 0.0
 
 
-def test_render_and_metrics(trained):
+def _with_view_dependence(out, dst):
+    """A copy of the model directory whose splats have random higher SH
+    bands (a 6-step run leaves them at zero), so a render at the wrong SH
+    degree differs from the diffuse one."""
+    shutil.copytree(out, dst)
+    ply = os.path.join(dst, "point_cloud", "iteration_6", "point_cloud.ply")
+    model = tsplats.load_ply(ply, device="cpu")
+    rest = model.params.features_rest
+    rest.data = torch.from_numpy(
+        np.random.default_rng(7).normal(scale=0.5, size=rest.shape).astype(np.float32))
+    tsplats.save_ply(model, ply)
+    return dst
+
+
+def _diffuse_maps(out, caps):
+    """The training views of the model directory and the port's own renders
+    of them at SH degree 0, as cli.render's mesh branch should fuse them."""
+    from tpu2dgs_torch.data.scene import Scene
+    from tpu2dgs_torch.raster.api import RasterSettings, render
+
+    args = tcfg.load_cfg_args(out)
+    scene = Scene.load(args.source_path, resolution=args.resolution, eval_split=True,
+                       shuffle=False)
+    model = tsplats.load_ply(os.path.join(out, "point_cloud", "iteration_6", "point_cloud.ply"),
+                             device="cpu")
+    p = model.params
+    cam0 = scene.train_cameras[0]
+    settings = RasterSettings(cam0.width, cam0.height, sh_degree=0, **caps)
+    maps = {}
+    with torch.no_grad():
+        for cam in scene.train_cameras:
+            o = render(cam.arrays("cpu"), settings, p.xyz, torch.exp(p.scaling), p.rotation,
+                       torch.sigmoid(p.opacity[:, 0]), tsplats.features(p),
+                       torch.full((3,), float(args.white_background)), live=model.live,
+                       device="cpu")
+            maps[cam.image_name] = {k: o[k].numpy() for k in ("render", "surf_depth",
+                                                             "rend_alpha")}
+    return scene.train_cameras, maps
+
+
+def test_render_and_metrics(trained, tmp_path):
     from PIL import Image
 
+    from tpu2dgs.core.cameras import Camera as JaxCamera
+    from tpu2dgs.mesh.extract import GaussianExtractor as JaxExtractor
+    from tpu2dgs_torch.eval.geometry import chamfer_distance
+    from tpu2dgs_torch.mesh.extract import read_mesh_ply
+
     _, out, _ = trained
-    with pytest.raises(NotImplementedError, match="--skip_mesh"):
-        tcli_render.main(["-m", out, "--quiet"], device="cpu")
-    assert not os.path.exists(os.path.join(out, "train"))  # raised before writing anything
-    assert not os.path.exists(os.path.join(out, "test"))
+    caps = ["--bin_capacity", "256", "--tile_capacity", "256"]
+    model_dir = _with_view_dependence(out, str(tmp_path / "model"))
+    mesh_dir = os.path.join(model_dir, "train", "ours_6")
+    tcli_render.main(["-m", model_dir, "--skip_train", "--skip_test", "--quiet",
+                      "--mesh_res", "32", *caps], device="cpu")
+    tcli_render.main(["-m", model_dir, "--skip_train", "--skip_test", "--quiet", "--unbounded",
+                      "--mesh_res", "24", "--cull_views", "1", *caps], device="cpu")
+    assert sorted(os.listdir(mesh_dir)) == ["fuse.ply", "fuse_post.ply", "fuse_unbounded.ply",
+                                            "fuse_unbounded_post.ply"]
+    meshes = {name: read_mesh_ply(os.path.join(mesh_dir, name)) for name in os.listdir(mesh_dir)}
+    for name, (v, f) in meshes.items():
+        assert len(f) > 0 and np.isfinite(v).all() and f.max() < len(v), name
+    for name in ("fuse", "fuse_unbounded"):  # post-processing only drops faces
+        assert len(meshes[f"{name}_post.ply"][1]) <= len(meshes[f"{name}.ply"][1])
+
+    # fuse.ply against the JAX package's extractor fed the same diffuse
+    # maps, at the voxel and truncations tpu2dgs/cli/render.py derives from
+    # the cameras' radius and --mesh_res 32
+    cams, maps = _diffuse_maps(model_dir, {"bin_capacity": 256, "tile_capacity": 256})
+    jex = JaxExtractor(lambda cam: maps[cam.image_name])
+    jex.reconstruction([JaxCamera(uid=c.uid, image_name=c.image_name, R=c.R, T=c.T,
+                                  fovx=c.fovx, fovy=c.fovy, width=c.width, height=c.height,
+                                  alpha_mask=c.alpha_mask) for c in cams])
+    depth_trunc = jex.radius * 2.0
+    voxel = depth_trunc / 32
+    jv, jf, jc = jex.extract_mesh_bounded(voxel_size=voxel, sdf_trunc=5.0 * voxel,
+                                          depth_trunc=depth_trunc)
+    tv, tf = meshes["fuse.ply"]
+    assert abs(len(tf) - len(jf)) <= 5e-3 * len(jf) and len(jf) > 50
+    acc, comp, _ = chamfer_distance(tv, jv.astype(np.float32).astype(np.float64))
+    assert max(acc, comp) <= 0.01 * voxel, (acc, comp, voxel)
+    if len(tf) == len(jf):
+        np.testing.assert_array_equal(tf, jf)
+    # vertex colours: the diffuse (SH 0) colour, to one 8-bit step
+    rgb = tsplats.read_ply_vertices(os.path.join(mesh_dir, "fuse.ply"))
+    got = np.stack([rgb["red"], rgb["green"], rgb["blue"]], 1).astype(np.int64)
+    want = np.clip(jc * 255.0, 0, 255).astype(np.uint8).astype(np.int64)
+    if len(got) == len(want):
+        assert np.abs(got - want).max() <= 1
+    else:  # each vertex's colour beside the nearest JAX vertex's
+        from scipy.spatial import cKDTree
+
+        near = cKDTree(jv).query(tv)[1]
+        assert np.mean(np.abs(got - want[near]).max(axis=1) <= 1) > 0.99
 
     tcli_render.main(["-m", out, "--quiet", "--skip_mesh", "--bin_capacity", "256",
                       "--tile_capacity", "256"], device="cpu")

@@ -151,7 +151,9 @@ def test_port_imports_no_jax():
         "want = {'tpu2dgs_torch.' + n for n in ('cli.config', 'cli.train', 'cli.render',\n"
         "        'cli.metrics', 'cli.convert', 'data.colmap', 'data.scene', 'data.paths',\n"
         "        'train.checkpoint', 'train.logging', 'native.knn', 'eval.bin_probe',\n"
-        "        'eval.reduce_probe', 'eval.timing')}\n"
+        "        'eval.reduce_probe', 'eval.timing', 'mesh.marching', 'mesh.tsdf',\n"
+        "        'mesh.extract', 'mesh.cull', 'eval.geometry', 'eval.trajectory',\n"
+        "        'eval.tnt_scene', 'eval.dtu_scene', 'eval.mesh_profile')}\n"
         "assert want <= mods, sorted(want - mods)\n"
         "print(len(mods))\n"
     )

@@ -12,9 +12,13 @@ counterpart is found under the same path:
              densification, conversion of weights and training state
   train/     losses, the training step and the Trainer, checkpoints, logging
   data/      COLMAP and Blender scene loading, camera trajectories
-  cli/       train, render, metrics and convert from the command line
+  mesh/      TSDF fusion (bounded and contracted) on the device, marching
+             tetrahedra on the host, visibility culling, mesh PLYs
+  cli/       train, render (and mesh), metrics and convert from the
+             command line
   eval/      synthetic bench scenes and a training set, the serve and
-             train profiles, the binning and reduction probes
+             train profiles, the binning and reduction probes, the
+             geometry evaluators (Chamfer, F-score, TnT and DTU scenes)
   native/    nvcc build of csrc/*.cu (and g++ build of the host's Morton KNN)
              into shared libraries bound with ctypes
   csrc/      the CUDA C++ kernels

@@ -1,23 +1,25 @@
-"""Render the train and test sets of a trained model from the command line
-— flag-compatible with the JAX package's `tpu2dgs.cli.render` and the
-reference render.py.
+"""Render the train and test sets of a trained model and extract its mesh
+from the command line — flag-compatible with the JAX package's
+`tpu2dgs.cli.render` and the reference render.py.
 
-    python3 -m tpu2dgs_torch.cli.render -m <model dir> --skip_mesh
+    python3 -m tpu2dgs_torch.cli.render -m <model dir> [--unbounded --mesh_res 1024]
 
 Loads the trained PLY at --iteration (default: latest) and writes
 renders/, gt/ and vis/ (float32 depth TIFFs) for the train and test sets
 under <model>/{train,test}/ours_<iteration>/; --render_path adds a novel
-trajectory. Runs on the GPU (`main(argv, device="cpu")` from Python runs
-the kernels' plain versions).
-
-Mesh extraction is not ported yet: without --skip_mesh the command raises
-NotImplementedError before it renders anything. The mesh flags parse, as
-the JAX package's do.
+trajectory. Unless --skip_mesh is given, it renders every training view
+again with diffuse colour (SH degree 0), fuses the depth maps into a TSDF on
+the device (bounded: fuse.ply, or contracted with --unbounded:
+fuse_unbounded.ply), optionally culls faces seen by fewer than --cull_views
+views, and keeps the --num_cluster largest clusters (*_post.ply), all under
+<model>/train/ours_<iteration>/. Runs on the GPU (`main(argv,
+device="cpu")` from Python runs the kernels' plain versions).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -82,10 +84,6 @@ def main(argv=None, device=None):
 
     parser = build_parser()
     args = cfg_lib.get_combined_args(parser, argv)
-    if not args.skip_mesh:
-        raise NotImplementedError(
-            "mesh extraction is not ported yet (it comes with the mesh slice): "
-            "pass --skip_mesh to render the train and test sets only")
     model_p = cfg_lib.extract(cfg_lib.ModelParams, args)
     pipe_p = cfg_lib.extract(cfg_lib.PipelineParams, args)
     raster_p = cfg_lib.extract(cfg_lib.RasterParams, args)
@@ -117,7 +115,7 @@ def main(argv=None, device=None):
     splat_args = (p.xyz, torch.exp(p.scaling), p.rotation,
                   torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p))
 
-    def render_fn(cam):
+    def render_fn(cam, settings=settings):
         return render(
             cam.arrays(dev), settings, *splat_args, bg, live=model.live, device=dev,
             convert_shs_python=pipe_p.convert_SHs_python,
@@ -155,6 +153,54 @@ def main(argv=None, device=None):
                         os.path.join(traj_dir, f"{i:05d}.png"))
         create_videos(traj_dir, os.path.join(model_p.model_path, f"traj_{it}.mp4"))
         print(f"render path saved at {traj_dir}")
+
+    if not args.skip_mesh:
+        diffuse = dataclasses.replace(settings, sh_degree=0)
+        extract_mesh(args, scene.train_cameras, lambda cam: render_fn(cam, diffuse),
+                     os.path.join(model_p.model_path, "train", f"ours_{it}"), dev)
+
+
+def extract_mesh(args, cameras, render_fn, out_dir: str, device) -> None:
+    """Fuse the training views' renders into a mesh and write it, then its
+    culled and cluster-filtered form. `render_fn` renders with diffuse colour
+    only: the reference forces active_sh_degree = 0 before reconstruction so
+    fused vertex colours carry no view dependence (reference render.py:89-90)."""
+    from tpu2dgs_torch.mesh.extract import (
+        GaussianExtractor, post_process_mesh, write_mesh_ply,
+    )
+
+    ex = GaussianExtractor(render_fn, device=device)
+    ex.reconstruction(cameras)
+    name = "fuse.ply"
+    if args.unbounded:
+        name = "fuse_unbounded.ply"
+        verts, faces, colors = ex.extract_mesh_unbounded(resolution=args.mesh_res)
+    else:
+        depth_trunc = (ex.radius * 2.0) if args.depth_trunc < 0 else args.depth_trunc
+        voxel_size = (depth_trunc / args.mesh_res) if args.voxel_size < 0 else args.voxel_size
+        sdf_trunc = 5.0 * voxel_size if args.sdf_trunc < 0 else args.sdf_trunc
+        verts, faces, colors = ex.extract_mesh_bounded(
+            voxel_size=voxel_size, sdf_trunc=sdf_trunc, depth_trunc=depth_trunc)
+    out_path = os.path.join(out_dir, name)
+    os.makedirs(out_dir, exist_ok=True)
+    write_mesh_ply(out_path, verts, faces, colors)
+    print(f"mesh saved at {out_path}")
+    if args.cull_views > 0:
+        # optional visibility culling against the training views' rendered
+        # depths (the reference's TnT cull_mesh, which its mainline leaves
+        # disabled; mesh/cull.py)
+        from tpu2dgs_torch.mesh.cull import cull_mesh
+
+        verts, faces, kept = cull_mesh(
+            verts, faces, ex.cameras, ex.depthmaps,
+            eps=args.cull_eps, min_views=args.cull_views)
+        colors = colors[kept]
+        print(f"culled to {len(verts)} vertices ({args.cull_views}+ views)")
+    verts, faces, colors = post_process_mesh(
+        verts, faces, colors, num_cluster=args.num_cluster)
+    post_path = out_path.replace(".ply", "_post.ply")
+    write_mesh_ply(post_path, verts, faces, colors)
+    print(f"mesh post processed saved at {post_path}")
 
 
 if __name__ == "__main__":

@@ -36,7 +36,7 @@ def make_shell_scene(w: int = 800, h: int = 800, n: int = 1 << 17,
     rng = np.random.default_rng(seed)
     theta = rng.uniform(0, np.pi, n)
     phi = rng.uniform(0, 2 * np.pi, n)
-    rr = 0.8 + 0.1 * np.sin(4 * theta) * np.cos(3 * phi)
+    rr = shell_radius(theta, phi)
     nrm = np.stack([np.sin(theta) * np.cos(phi),
                     np.cos(theta),
                     np.sin(theta) * np.sin(phi)], -1)
@@ -66,6 +66,23 @@ def make_shell_scene(w: int = 800, h: int = 800, n: int = 1 << 17,
 
     cam = shell_camera(2 * np.pi * 0.13, w, h).arrays(dev)
     return cam, _tensors((xyz, scaling, quat, opacity, feats), dev)
+
+
+def shell_radius(theta, phi):
+    """The shell's radius along polar angle theta (from +y) and azimuth phi
+    (from +x towards +z): r = 0.8 + 0.1 sin(4 theta) cos(3 phi)."""
+    return 0.8 + 0.1 * np.sin(4 * theta) * np.cos(3 * phi)
+
+
+def shell_surface_points(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 3) float64 points of the shell surface whose directions are
+    uniform on the sphere: the generating surface that a mesh of the shell
+    scene is held against."""
+    d = np.random.default_rng(seed).normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    theta = np.arccos(np.clip(d[:, 1], -1.0, 1.0))
+    phi = np.arctan2(d[:, 2], d[:, 0])
+    return shell_radius(theta, phi)[:, None] * d
 
 
 def shell_camera(angle: float, w: int, h: int) -> cameras.Camera:

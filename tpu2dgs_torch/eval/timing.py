@@ -3,6 +3,8 @@
 from __future__ import annotations
 
 import subprocess
+import time
+from unittest import mock
 
 import torch
 
@@ -54,3 +56,30 @@ def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+class Stopwatch:
+    """Host seconds spent inside chosen functions, each call bracketed by
+    `sync` (a device synchronize on the GPU): where a run's time goes."""
+
+    def __init__(self, sync=torch.cuda.synchronize):
+        self.sync = sync
+        self.seconds: dict[str, list[float]] = {}
+
+    def watch(self, owner, name: str, label: str):
+        """A patch of owner.name that adds each call's seconds to `label`."""
+        orig = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            self.sync()
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.sync()
+                self.seconds.setdefault(label, []).append(time.perf_counter() - t0)
+
+        return mock.patch.object(owner, name, timed)
+
+    def totals(self) -> dict[str, float]:
+        return {k: sum(v) for k, v in self.seconds.items()}
