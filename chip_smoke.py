@@ -25,6 +25,17 @@ main path:
            contracted one (--unbounded --mesh_res 512 --cull_views 1); the
            four mesh PLYs read back, and the bounded mesh held against the
            shell it was trained to show.
+  backends the cuda, tiled and oracle backends on one 800x800 shell view at
+           capacities no list overflows, the first two held against the
+           oracle, all three against the oracle run in float64; the
+           training loss's gradient through the kernels against the
+           float64 oracle's on a 256x256 bench scene; the tiled backend's
+           served-view and training-step times beside the cuda backend's;
+           select_rows against its plain version.
+  quality_gate  eval.quality_gate at its defaults (2000 iterations at
+           128x128 through cli.train, cli.render with the mesh and
+           cli.metrics): K1 3 / K2 1 / K3 1 launches per step, and the
+           gate's verdict, which must pass.
 
 Each path counts the kernel launches it makes, from zero. Each phase
 prints one JSON line; the line before the last but one lists every kernel
@@ -61,7 +72,7 @@ from tpu2dgs_torch.core.sh import sh_to_rgb
 from tpu2dgs_torch.data import colmap
 from tpu2dgs_torch.data.paths import save_img_u8
 from tpu2dgs_torch.data.scene import Scene
-from tpu2dgs_torch.eval import bin_probe, geometry, reduce_probe, synthetic
+from tpu2dgs_torch.eval import bin_probe, geometry, quality_gate, reduce_probe, synthetic
 from tpu2dgs_torch.eval.timing import Stopwatch, card, cuda_ms
 from tpu2dgs_torch.mesh import cull, extract, marching, tsdf
 from tpu2dgs_torch.model import splats as splats_lib
@@ -142,6 +153,41 @@ REDUCE_TOL = 1e-5
 # cancels down to 1e-3 of its own size there.
 GRAD_TOL = 1e-3
 GRAD_FLOOR = 1e-6
+
+# The backends phase holds the cuda and tiled backends to the oracle on one
+# 800x800 shell view, at capacities with room for every list. A pixel of a
+# map is past where a channel differs from the oracle's value v by more than
+# the repo's render tolerance, RENDER_TOL (1 + |v|) (tests/test_pallas.py's
+# assert_allclose). Of each gated map at most FLIP_SHARE of the pixels may
+# be past: half a 16x16 sub-tile, K2's least unit of work (128 pixels), so
+# a fault confined to one sub-tile's pixels shows. At every pixel, a map
+# that sums T alpha c over the splats (render, rend_alpha, rend_normal) may
+# differ by at most FLIP_CAP max |c|: both sides walk the splats in the
+# same order (the same float32 depth keys), so a pixel moves only where a
+# splat's contribution test decides otherwise (its alpha moves by at most
+# opacity e^-4.5, the Gaussian at its 3-sigma edge; 1/255 is less), and
+# the sum by at most T (|c_i| + max |c|) a splat. depth_accum is K2's
+# depth channel before the division by alpha (depth_expected x
+# rend_alpha); its c, the depth where the ray meets the splat's plane,
+# grows without bound as a splat turns edge-on, so it is held by its share
+# alone, as rend_dist (a sum over pairs) and depth_median (a selection)
+# are. surf_depth and surf_normal, decoded from the depth and alpha maps by
+# the same code on every backend, are reported. The three float32 renders
+# are also held to the oracle run in float64, and reported: what float32
+# costs the spec itself.
+GATED_MAPS = ("render", "rend_alpha", "rend_normal", "rend_dist", "depth_accum",
+              "depth_median")
+FLIP_SHARE = 128 / (W * H)
+FLIP_CAP = 2.0 * math.exp(-4.5)
+LISTED_MAPS = (*GATED_MAPS, "surf_depth")  # each pixel past printed with alpha, T
+# The gradient check: the loss's derivative with respect to these maps,
+# taken at the float64 render, is sent back through each backend.
+LOSS_MAPS = ("render", "rend_normal", "surf_normal", "rend_dist")
+GRAD_SCENE = (256, 256, 8192)  # w, h, splats of the bench generator, seed 0
+GRAD_SCENE_CAPS = dict(bin_capacity=8192, tile_capacity=8192, col_capacity=8192)
+BACKEND_REPS = 3
+# The quality gate at its calibrated defaults (iterations, pixels).
+QGATE = (2000, 128)
 
 KEYS = ["render", "rend_alpha", "rend_normal", "rend_dist", "surf_depth",
         "surf_normal", "depth_median"]
@@ -937,6 +983,299 @@ def cli(out_dir: Path):
     return launches, mesh_s
 
 
+def r128(x) -> int:
+    return max(128, -(-int(float(x)) // 128) * 128)
+
+
+def timed_ms(fn):
+    """(fn(), host ms of the call ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def in_dtype(cam, scene, bg, dtype):
+    return (type(cam)(*(a.to(dtype) for a in cam)), [a.to(dtype) for a in scene], bg.to(dtype))
+
+
+def with_depth_accum(out: dict) -> dict:
+    return {**out, "depth_accum": out["depth_expected"] * out["rend_alpha"]}
+
+
+def held_to(out, ref, listed=()) -> dict:
+    """Per map: max |d| against `ref` and the pixels past the render
+    tolerance in any channel; those of the `listed` maps printed with the
+    reference's alpha and transmittance there."""
+    alpha = ref["rend_alpha"][0]
+    info = {}
+    for k in (*KEYS, "depth_accum"):
+        diff = (out[k] - ref[k]).abs()
+        past = torch.nonzero((diff - RENDER_TOL * ref[k].abs()).amax(0) > RENDER_TOL)
+        info[k] = {"max_abs": float(diff.max()), "pixels_past": len(past),
+                   "share_past": len(past) / alpha.numel()}
+        if k in listed:
+            at = diff.amax(0)[past[:, 0], past[:, 1]]
+            info[k]["past"] = [{"y": y, "x": x, "abs": a, "alpha": float(alpha[y, x]),
+                                "transmittance": 1.0 - float(alpha[y, x])}
+                               for (y, x), a in zip(past.tolist(), at.tolist())]
+    return info
+
+
+@torch.no_grad()
+def full_width_forward():
+    """One 800x800 shell view through the cuda and tiled backends and the
+    oracle in float32 and float64, at capacities raised until no overflow
+    counter of either binned backend fires. cuda and tiled are gated
+    against the float32 oracle; all three float32 renders are held to the
+    float64 one and reported."""
+    cam, scene = synthetic.make_shell_scene(W, H, N_SPLATS)
+    bg = torch.zeros(3, device=scene[0].device)
+    caps = dict(GT_CAPS)
+    for _ in range(3):
+        outs = {be: api.render(cam, api.RasterSettings(W, H, backend=be, **caps), *scene, bg)
+                for be in ("cuda", "tiled")}
+        fired = {(be, k): float(o[k]) for be, o in outs.items() for k in
+                 ("tile_overflow_frac", "bin_overflow_frac", "col_overflow_frac",
+                  "vis_overflow") if k in o and float(o[k]) > 0.0}
+        if not fired:
+            break
+        for kwarg, demand in (("tile_capacity", "tile_count_max"),
+                              ("bin_capacity", "bin_count_max"),
+                              ("col_capacity", "col_count_max")):
+            caps[kwarg] = max([caps[kwarg]] + [r128(o[demand]) for o in outs.values()
+                                               if demand in o])
+    else:
+        fail(f"backends: overflow counters still fire at {caps}: {fired}")
+    ms = {}
+    for be in ("cuda", "tiled", "oracle"):
+        settings = api.RasterSettings(W, H, backend=be, **caps)
+        outs[be], ms[be] = timed_ms(lambda: api.render(cam, settings, *scene, bg))
+    cam64, scene64, bg64 = in_dtype(cam, scene, bg, torch.float64)
+    ref64, ms["oracle64"] = timed_ms(lambda: api.render(
+        cam64, api.RasterSettings(W, H, backend="oracle"), *scene64, bg64))
+    outs = {be: with_depth_accum(o) for be, o in outs.items()}
+    ref = outs["oracle"]
+    splats = preprocess.preprocess(*scene, cam, W, H, 3)
+    c_max = {"render": float(splats.color[splats.visible].abs().max()), "rend_alpha": 1.0,
+             "rend_normal": 1.0}
+    held = {be: held_to(outs[be], ref, LISTED_MAPS) for be in ("cuda", "tiled")}
+    witness = {be: held_to(outs[be], with_depth_accum(ref64)) for be in ("cuda", "tiled", "oracle")}
+    bad = {}
+    for be, info in held.items():
+        if not torch.equal(outs[be]["radii"], ref["radii"]):
+            bad[be] = "radii differ"
+        for k in GATED_MAPS:
+            cap = FLIP_CAP * c_max[k] if k in c_max else math.inf
+            if info[k]["share_past"] > FLIP_SHARE or info[k]["max_abs"] > cap:
+                bad[f"{be} {k}"] = {"cap": cap, **{key: info[k][key] for key in
+                                                   ("max_abs", "pixels_past", "share_past")}}
+    return {"caps": caps, "ms": ms, "vs_oracle": held, "vs_oracle64": witness, "c_max": c_max,
+            "alpha_mean": float(ref["rend_alpha"].mean()),
+            "tile_count_max": {be: float(outs[be]["tile_count_max"]) for be in ("cuda", "tiled")},
+            "failed": bad}
+
+
+def oracle_gradients():
+    """The training loss's gradient (photometric + 0.05 normal + 100
+    distortion, loop.view_gradients' loss) on the bench generator's scene
+    at GRAD_SCENE, through the kernels (K1 3, K2 1, K3 1 a backward pass)
+    and through the oracle in float32, each against the oracle's in
+    float64, per parameter as max |d| / that parameter's largest |float64
+    gradient|:
+
+    * gated for the kernels (<= GRAD_TOL): the gradient of the loss
+      linearised at the float64 render, its derivative with respect to the
+      maps (LOSS_MAPS) taken there once and sent back through each backend;
+    * reported: the gradient of each backend's own loss. L1's derivative is
+      the sign of render - target, so a channel-pixel whose float32 render
+      and float64 render lie on either side of the target flips its whole
+      photometric term; their count is reported beside it."""
+    w, h, n = GRAD_SCENE
+    cam, scene = synthetic.make_bench_scene(w, h, n)
+    model = synthetic.scene_model(scene)
+    gt = torch.full((3, h, w), 0.3, dtype=torch.float64, device=scene[0].device)
+    bg = torch.zeros(3, device=scene[0].device)
+    names = (*model.params._fields, "mean2d_offset")
+
+    def forward(backend, dtype):
+        params = splats_lib.SplatParams(*(a.detach().to(dtype).requires_grad_()
+                                          for a in model.params))
+        offset = torch.zeros((n, 2), dtype=dtype, device=gt.device, requires_grad=True)
+        cam_d, _, bg_d = in_dtype(cam, scene, bg, dtype)
+        out = api.render(cam_d, api.RasterSettings(w, h, backend=backend, **GRAD_SCENE_CAPS),
+                         params.xyz, torch.exp(params.scaling), params.rotation,
+                         torch.sigmoid(params.opacity[:, 0]), splats_lib.features(params),
+                         bg_d, mean2d_offset=offset, live=model.live)
+        photo, _ = loop.losses.photometric_loss(out["render"], gt.to(dtype), 0.2)
+        total = (photo + 0.05 * loop.losses.normal_consistency_loss(out["rend_normal"],
+                                                                    out["surf_normal"])
+                 + 100.0 * loop.losses.distortion_loss(out["rend_dist"]))
+        return out, total, (*params, offset)
+
+    def rel(g, g64):
+        return {name: {"max_abs_err": float((a.double() - b).abs().max()),
+                       "grad_max": float(b.abs().max()),
+                       "rel": float((a.double() - b).abs().max() / b.abs().max())}
+                for name, a, b in zip(names, g, g64)}
+
+    out64, loss64, inputs64 = forward("oracle", torch.float64)
+    maps64 = [out64[k] for k in LOSS_MAPS]
+    cot = torch.autograd.grad(loss64, maps64, retain_graph=True)
+    g64 = torch.autograd.grad(maps64, inputs64, cot)
+    result, bad = {}, {}
+    for be in ("cuda", "oracle"):
+        before = dict(native.LAUNCHES)
+        out, loss, inputs = forward(be, torch.float32)
+        own = torch.autograd.grad(loss, inputs, retain_graph=True)
+        lin = torch.autograd.grad([out[k] for k in LOSS_MAPS], inputs,
+                                  [c.to(torch.float32) for c in cot])
+        torch.cuda.synchronize()
+        launched = {k: native.LAUNCHES.get(k, 0) - before.get(k, 0)
+                    for k in ("select_values", "blend_tiles", "blend_tiles_backward")}
+        signs = int(((out["render"].double() - gt).sign() != (out64["render"] - gt).sign()).sum())
+        result[be] = {"linearised": rel(lin, g64), "own_loss": rel(own, g64),
+                      "l1_sign_flips": signs, "launches": launched}
+        if be == "cuda":
+            if launched != {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 2}:
+                fail(f"backends: the gradients through the kernels launched {launched}, "
+                     "want 3 / 1 / 2 (two backward passes)")
+            overflow = {k: float(out[k]) for k in OVERFLOW if k.endswith(("_frac", "overflow"))
+                        and k in out}
+            if any(overflow.values()):
+                fail(f"backends: the gradient scene overflows {overflow}")
+            bad = {k: v for k, v in result[be]["linearised"].items()
+                   if not (math.isfinite(v["rel"]) and v["grad_max"] > 0.0
+                           and v["rel"] <= GRAD_TOL)}
+    return result, bad
+
+
+def backend_times():
+    """Served-view and training-step ms of the tiled backend at 800x800 on
+    the shell scene at the bench capacities, beside the cuda backend's
+    (host clock ending in a synchronize; median of BACKEND_REPS after a
+    warm-up), with each step's peak device memory."""
+    cam, scene = synthetic.make_shell_scene(W, H, N_SPLATS)
+    model = synthetic.scene_model(scene)
+    bg = torch.zeros(3, device=scene[0].device)
+    caps = {k: v for k, v in CAPS.items() if k != "grad_pack_capacity"}
+    with torch.no_grad():
+        gt = api.render(cam, api.RasterSettings(W, H, **GT_CAPS), *scene, bg)["render"]
+    times = {}
+    for be in ("cuda", "tiled"):
+        settings = api.RasterSettings(W, H, backend=be, **caps)
+
+        def view():
+            with torch.no_grad():
+                return api.render(cam, settings, *scene, bg)
+
+        def step():
+            return loop.view_gradients(model, settings, cam, gt, bg, 0.2, 0.05, 100.0)
+
+        row = {}
+        for name, fn in (("view", view), ("step", step)):
+            fn()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            row[f"{name}_ms"] = sorted(timed_ms(fn)[1] for _ in range(BACKEND_REPS))
+            row[f"{name}_ms_median"] = row[f"{name}_ms"][BACKEND_REPS // 2]
+            row[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        times[be] = row
+    return times
+
+
+def select_rows_check() -> dict:
+    """select_rows (K1 with an iota channel) on the card against its plain
+    version on the CPU: bit-equal positions and counts, one launch."""
+    rng = np.random.default_rng(0)
+    np_, m, r, cap = 3, 4096, 64, 256
+    cx0 = rng.uniform(0, 800, (np_, m)).astype(np.float32)
+    cy0 = rng.uniform(0, 800, (np_, m)).astype(np.float32)
+    boxes = [torch.from_numpy(a) for a in (
+        cx0, cx0 + rng.uniform(5, 60, (np_, m)).astype(np.float32),
+        cy0, cy0 + rng.uniform(5, 60, (np_, m)).astype(np.float32))]
+    rx0 = torch.from_numpy(rng.uniform(0, 700, r).astype(np.float32))
+    ry0 = torch.from_numpy(rng.uniform(0, 700, r).astype(np.float32))
+    rects = (rx0, rx0 + 127, ry0, ry0 + 63)
+    parent = torch.from_numpy(rng.integers(0, np_, r).astype(np.int32))
+    want = select_kernel.select_rows(rects, boxes, parent, cap)
+    before = native.LAUNCHES.get("select_values", 0)
+    got = select_kernel.select_rows([a.cuda() for a in rects], [a.cuda() for a in boxes],
+                                    parent.cuda(), cap)
+    launches = native.LAUNCHES.get("select_values", 0) - before
+    if launches != 1 or not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        fail(f"select_rows: {launches} launches, equal to plain: "
+             f"{[torch.equal(a.cpu(), b) for a, b in zip(got, want)]}")
+    return {"rows": r, "candidates": m, "cap": cap, "launches": launches,
+            "hits_max": int(want[1].max())}
+
+
+def backends():
+    """The oracle and tiled backends on the card, and the kernels held
+    against the oracle. Returns the kernels' launches of the phase (the
+    cuda renders and the gradient; select_rows' comparison launch is not
+    counted)."""
+    t0 = time.perf_counter()
+    native.LAUNCHES.clear()
+    forward = full_width_forward()
+    grads, grads_bad = oracle_gradients()
+    times = backend_times()
+    launches = dict(native.LAUNCHES)
+    rows = select_rows_check()
+    emit({"phase": "backends", "seconds": time.perf_counter() - t0, "launches": launches,
+          "forward_800": forward, "grad_scene": GRAD_SCENE, "grad_vs_oracle": grads,
+          "times_800": times, "select_rows": rows, "card": card()})
+    if forward["failed"]:
+        fail(f"backends: against the oracle at 800x800 (at most {FLIP_SHARE} of a map's "
+             f"pixels past {RENDER_TOL} (1 + |v|), a summed map within {FLIP_CAP} max|c| "
+             f"at every pixel): {forward['failed']}")
+    if grads_bad:
+        fail(f"backends: the gradients through the kernels differ from the float64 "
+             f"oracle's by more than {GRAD_TOL} of each parameter's largest: {grads_bad}")
+    return launches
+
+
+def quality_gate_phase(out_dir: Path):
+    """eval.quality_gate at its defaults; fails unless the gate passes.
+    Every training step launches K1 3, K2 1 and K3 1 times."""
+    gate_dir = out_dir / "qgate"
+    shutil.rmtree(gate_dir, ignore_errors=True)
+    steps = []
+    train_step = loop.train_step
+
+    def counted(*args, **kwargs):
+        before = dict(native.LAUNCHES)
+        out = train_step(*args, **kwargs)
+        steps.append({k: native.LAUNCHES.get(k, 0) - before.get(k, 0)
+                      for k in ("select_values", "blend_tiles", "blend_tiles_backward")})
+        return out
+
+    watch = Stopwatch()
+    native.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "train_step", counted), \
+            watch.watch(loop.Trainer, "train", "train"), \
+            watch.watch(cli_render, "extract_mesh", "mesh"):
+        report = quality_gate.main(str(gate_dir), *QGATE)
+    seconds = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    iters = QGATE[0]
+    want = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
+    off = [i for i, st in enumerate(steps, 1) if st != want]
+    if len(steps) != iters or off:
+        fail(f"quality_gate: {len(steps)} steps, {len(off)} of them not 3 / 1 / 1 "
+             f"(first: {[steps[i - 1] for i in off[:3]]})")
+    emit({"phase": "quality_gate", "seconds": seconds, "launches": launches,
+          "train_seconds": sum(watch.seconds["train"]),
+          "steps_per_s": iters / sum(watch.seconds["train"]),
+          "mesh_seconds": sum(watch.seconds["mesh"]), "report": report, "card": card()})
+    if not report["pass"]:
+        fail(f"quality_gate: the gate failed: {report}")
+    shutil.rmtree(gate_dir)
+    return launches
+
+
 @torch.no_grad()
 def serve(settings, out_dir: Path):
     """The main path: load a PLY, answer VIEWS render requests."""
@@ -1056,13 +1395,20 @@ def main() -> None:
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cli_launches, mesh_s = cli(out_dir)
+    cli_s = time.perf_counter() - t0 - mesh_s
+    t0 = time.perf_counter()
+    backend_launches = backends()
+    backends_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gate_launches = quality_gate_phase(out_dir)
+    gate_s = time.perf_counter() - t0
     emit({"phase": "seconds", "probe": probe_s, "serve": serve_s, "train": train_s,
-          "cli": time.perf_counter() - t0 - mesh_s, "mesh": mesh_s,
+          "cli": cli_s, "mesh": mesh_s, "backends": backends_s, "quality_gate": gate_s,
           "total": time.perf_counter() - t_start})
 
     def launched(name):  # cli_launches holds the mesh phase's
-        return (probe_launches.get(name, 0) + launches.get(name, 0)
-                + train_launches.get(name, 0) + cli_launches.get(name, 0))
+        return sum(ph.get(name, 0) for ph in (probe_launches, launches, train_launches,
+                                              cli_launches, backend_launches, gate_launches))
 
     emit({"kernels": [
         {"name": "select_values", "route": "cuda",

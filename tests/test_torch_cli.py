@@ -10,6 +10,9 @@
     held against the JAX package's extractor fed the port's diffuse maps),
     cli.render --skip_mesh, cli.metrics --no_lpips, and the model directory
     read back by the JAX package;
+  * cli.render of a model directory whose cfg_args the JAX package's
+    cli.train wrote, and of one that names the tiled backend; cli.train
+    --backend tiled, its tile capacity healed after an overflow;
   * gt_cache_mb: host-resident ground truth gives the pre-staged run's
     losses exactly;
   * the Morton KNN: bit-equal to the JAX package's (same source and flags),
@@ -82,9 +85,8 @@ def test_backend_names(tmp_path, capsys):
     assert tcfg.port_backend("cuda") == "cuda"
     assert tcfg.port_backend("pallas") == "cuda"
     assert '"pallas"' in capsys.readouterr().out  # the CLI says that it did so
-    for name in ("tiled", "oracle"):
-        with pytest.raises(NotImplementedError, match="--backend cuda"):
-            tcfg.port_backend(name)
+    for name in ("tiled", "oracle"):  # the JAX package's default and its spec
+        assert tcfg.port_backend(name) == name
     with pytest.raises(ValueError):
         tcfg.port_backend("vulkan")
     # a hand-written cfg_args that names the JAX package's backend
@@ -114,7 +116,7 @@ def test_parsers_accept_the_jax_flags():
         assert set(jopts) == set(topts)
         for dest, ja in jopts.items():
             assert set(ja.option_strings) == set(topts[dest].option_strings), dest
-            if dest != "backend":  # "tiled" there, "cuda" here
+            if dest != "backend":  # "tiled" there; "cuda" here, or cfg_args' in render
                 assert ja.default == topts[dest].default, dest
 
 
@@ -122,9 +124,7 @@ def test_unported_arguments_raise(tmp_path):
     base = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--disable_viewer"]
     for extra, slice_name in ((["--n_devices", "2"], "multi-device"),
                               (["--n_devices", "0"], "multi-device"),
-                              (["--shard_mode", "splats"], "multi-device"),
-                              (["--backend", "tiled"], "backend"),
-                              (["--backend", "oracle"], "backend")):
+                              (["--shard_mode", "splats"], "multi-device")):
         with pytest.raises(NotImplementedError, match=slice_name):
             tcli_train.main(base + extra, device="cpu")
     assert not (tmp_path / "out").exists()  # refused before anything was written
@@ -402,6 +402,109 @@ def test_render_and_metrics(trained, tmp_path):
     assert results["ours_6"]["LPIPS"] is None
     assert 0.0 < results["ours_6"]["PSNR"] < 100.0 and -1.0 <= results["ours_6"]["SSIM"] <= 1.0
     assert set(per_view["ours_6"]["PSNR"]) == {"00000.png"}
+
+
+def test_render_reads_the_backend_from_cfg_args(trained, tmp_path, monkeypatch):
+    """A model directory whose cfg_args is written as tpu2dgs.cli.train
+    writes it (its parser's backend default is "tiled"; the file keeps the
+    model fields) renders through the port; one whose cfg_args holds the
+    whole namespace, backend="tiled" in it, as the reference's train.py
+    writes, renders through the tiled backend."""
+    from tpu2dgs.cli import train as jcli_train
+    from tpu2dgs_torch.raster import api as tapi
+
+    root, out, _ = trained
+    calls = []
+    tiled = tapi.rasterize_tiled
+    monkeypatch.setattr(tapi, "rasterize_tiled",
+                        lambda *a, **k: calls.append(1) or tiled(*a, **k))
+    jargs = jcli_train.build_parser().parse_args(["-s", root, "-m", out, "--eval"])
+    assert jargs.backend == "tiled"
+    for form in ("jax", "reference"):
+        model_dir = str(tmp_path / form)
+        shutil.copytree(out, model_dir, ignore=shutil.ignore_patterns("train", "test"))
+        jargs.model_path = model_dir
+        if form == "jax":
+            jcfg.save_cfg_args(model_dir, jargs)
+            assert "backend" not in tcfg.load_cfg_args(model_dir)
+        else:
+            (tmp_path / form / "cfg_args").write_text(repr(argparse.Namespace(**vars(jargs))))
+            assert tcfg.load_cfg_args(model_dir).backend == "tiled"
+        calls.clear()
+        tcli_render.main(["-m", model_dir, "--quiet", "--skip_mesh", "--skip_train"],
+                         device="cpu")
+        renders = os.listdir(os.path.join(model_dir, "test", "ours_6", "renders"))
+        assert renders == ["00000.png"]
+        assert len(calls) == (1 if form == "reference" else 0), form
+
+
+def _crowded(out, dst, reps=16):
+    """A copy of the model directory whose splats are repeated `reps` times,
+    jittered, three times as large and faint (opacity 0.03), so the cuda
+    backend's 16x128 tiles hold more than its least tile capacity (128)
+    and what a list drops shows in the render."""
+    shutil.copytree(out, dst, ignore=shutil.ignore_patterns("train", "test"))
+    ply = os.path.join(dst, "point_cloud", "iteration_6", "point_cloud.ply")
+    model = tsplats.load_ply(ply, device="cpu")
+    p, live = model.params, model.live
+    n = int(live.sum()) * reps
+    jitter = np.random.default_rng(8).normal(scale=0.05, size=(n, 3)).astype(np.float32)
+    scene = (p.xyz[live].repeat(reps, 1) + torch.from_numpy(jitter),
+             3.0 * torch.exp(p.scaling[live]).repeat(reps, 1), p.rotation[live].repeat(reps, 1),
+             torch.full((n,), 0.03), tsplats.features(p)[live].repeat(reps, 1, 1))
+    tsplats.save_ply(synthetic.scene_model([a.detach() for a in scene]), ply)
+    return dst
+
+
+def test_render_at_the_gate_demand_capacities(trained, tmp_path):
+    """cli.render renders at its flags' capacities: on a model whose cuda
+    tiles hold more splats than the least tile capacity (128), its renders at
+    --tile_capacity 8 drop what the lists cannot hold; at the flags that
+    eval.quality_gate.demand_flags reads from the model's demand they equal
+    the renders at capacities with room for every list."""
+    from PIL import Image
+
+    from tpu2dgs_torch.data.scene import Scene
+    from tpu2dgs_torch.eval import quality_gate as tq
+
+    _, out, _ = trained
+    model_dir = _crowded(out, str(tmp_path / "crowded"))
+    args = tcfg.load_cfg_args(model_dir)
+    scene = Scene.load(args.source_path, resolution=args.resolution, eval_split=True,
+                       shuffle=False)
+    model = tsplats.load_ply(os.path.join(model_dir, "point_cloud", "iteration_6",
+                                          "point_cloud.ply"), device="cpu")
+    demand = tq.demand_flags(model, scene.train_cameras + scene.test_cameras,
+                             torch.device("cpu"))
+    assert demand[::2] == ["--backend", "--bin_capacity", "--tile_capacity", "--col_capacity"]
+    assert demand[1] == "cuda" and int(demand[5]) > 128
+    views = {}
+    for name, caps in (("room", ["--bin_capacity", "4096", "--tile_capacity", "4096"]),
+                       ("tight", ["--bin_capacity", "8", "--tile_capacity", "8"]),
+                       ("demand", demand)):
+        tcli_render.main(["-m", model_dir, "--quiet", "--skip_mesh", "--skip_train", *caps],
+                         device="cpu")
+        with Image.open(os.path.join(model_dir, "test", "ours_6", "renders", "00000.png")) as im:
+            views[name] = np.asarray(im)
+    assert not np.array_equal(views["tight"], views["room"])
+    np.testing.assert_array_equal(views["demand"], views["room"])
+
+
+def test_train_tiled_heals_a_tile_overflow(trained, tmp_path):
+    """--backend tiled trains, and its overflow counters raise the tile
+    capacity through the Trainer's adaptive caps."""
+    root, _, _ = trained
+    trainer = tcli_train.main(["-s", root, "-m", str(tmp_path / "tiled"), *TRAIN_FLAGS,
+                               "--backend", "tiled", "--tile_capacity", "4",
+                               "--densification_interval", "2"], device="cpu")
+    assert trainer.step == 6 and trainer.adam.count == 6
+    assert trainer.raster_kwargs["backend"] == "tiled"
+    assert trainer._settings().tile_px == 16 and trainer._settings().chunk == 32
+    grown = [(it, new) for it, kwarg, new in trainer.cap_growth_events
+             if kwarg == "tile_capacity"]
+    assert grown and grown[0][0] == 2 and trainer.raster_kwargs["tile_capacity"] >= 128
+    assert all(bool(torch.isfinite(p).all()) for p in trainer.model.params)
+    assert os.path.exists(tmp_path / "tiled" / "point_cloud" / "iteration_6" / "point_cloud.ply")
 
 
 # -- ground truth over the budget -------------------------------------------------

@@ -153,7 +153,8 @@ def test_port_imports_no_jax():
         "        'train.checkpoint', 'train.logging', 'native.knn', 'eval.bin_probe',\n"
         "        'eval.reduce_probe', 'eval.timing', 'mesh.marching', 'mesh.tsdf',\n"
         "        'mesh.extract', 'mesh.cull', 'eval.geometry', 'eval.trajectory',\n"
-        "        'eval.tnt_scene', 'eval.dtu_scene', 'eval.mesh_profile')}\n"
+        "        'eval.tnt_scene', 'eval.dtu_scene', 'eval.mesh_profile', 'raster.blend',\n"
+        "        'raster.oracle', 'raster.tiled', 'eval.quality_gate')}\n"
         "assert want <= mods, sorted(want - mods)\n"
         "print(len(mods))\n"
     )

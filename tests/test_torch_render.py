@@ -183,7 +183,11 @@ def test_median_depth_ratio_and_unported_paths():
     with pytest.raises(NotImplementedError):
         tapi.render(*args, device="cpu", shard_splats=True)
     with pytest.raises(NotImplementedError):
-        tapi.render(args[0], tapi.RasterSettings(w, h, backend="tiled"), *args[2:],
-                    device="cpu")
+        tapi.render(*args, device="cpu", mesh=object())
+    # the tiled backend is ported: it renders (held against JAX in
+    # tests/test_torch_tiled.py)
+    tiled = tapi.render(args[0], tapi.RasterSettings(w, h, backend="tiled", depth_ratio=1.0),
+                        *args[2:], device="cpu")
+    assert torch.equal(tiled["surf_depth"], tiled["depth_median"])
     with pytest.raises(ValueError):
         tapi.RasterSettings(w, h, backend="pallas")

@@ -10,10 +10,11 @@ name, shorthand, and default, and `cfg_args` round-trips in the identical
 `Namespace(...)` repr format so the two implementations' model directories
 are interchangeable.
 
-The rasterizer backend of the port is "cuda". It is the JAX package's
+The port's default rasterizer backend is "cuda", the JAX package's
 "pallas" backend on another device: the same algorithm, capacities and
 counters. `port_backend` reads "pallas" as "cuda" and says so; "tiled" and
-"oracle" are not ported yet and raise.
+"oracle" (the JAX package's default and its spec, plain PyTorch here) pass
+through as they are.
 """
 
 from __future__ import annotations
@@ -85,9 +86,9 @@ class RasterParams:
     The capacity knobs are INITIAL values — the Trainer's adaptive cap
     growth raises any of them whose overflow counter fires (train/loop.py
     OVERFLOW_CAP_OF). tile_px, coarse_tiles and chunk belong to the tiled
-    backend, row_balance and xfer_capacity to multi-device rendering: the
-    flags parse, as the JAX package's do, and the cuda backend on one
-    device reads none of them."""
+    backend (chunk to the oracle too); row_balance and xfer_capacity to
+    multi-device rendering: those two flags parse, as the JAX package's do,
+    and nothing on one device reads them."""
 
     backend: str = "cuda"
     tile_px: int = 16
@@ -107,16 +108,12 @@ class RasterParams:
 
 def port_backend(name: str) -> str:
     """The port's backend for a backend name from a flag or a cfg_args."""
-    if name == "cuda":
+    if name in ("cuda", "tiled", "oracle"):
         return name
     if name == "pallas":
         print('backend "pallas" (the JAX package\'s fused kernels) read as "cuda": '
               "the same algorithm and contract on the GPU")
         return "cuda"
-    if name in ("tiled", "oracle"):
-        raise NotImplementedError(
-            f"the {name!r} backend is not ported yet (it comes with the tiled and "
-            "oracle backend slice): pass --backend cuda")
     raise ValueError(f"unknown raster backend {name!r}")
 
 

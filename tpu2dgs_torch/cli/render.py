@@ -34,6 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
     cfg_lib.add_group(parser, cfg_lib.ModelParams, sentinel=True)
     cfg_lib.add_group(parser, cfg_lib.PipelineParams)
     cfg_lib.add_group(parser, cfg_lib.RasterParams)
+    # a backend stored in cfg_args wins over the default (RasterParams'
+    # "cuda") unless --backend is given
+    parser.set_defaults(backend=None)
     parser.add_argument("--iteration", default=-1, type=int)
     parser.add_argument("--skip_train", action="store_true")
     parser.add_argument("--skip_test", action="store_true")
@@ -109,7 +112,9 @@ def main(argv=None, device=None):
     settings = RasterSettings(
         width=w, height=h, sh_degree=model_p.sh_degree,
         depth_ratio=pipe_p.depth_ratio, backend=raster_p.backend,
+        tile_px=raster_p.tile_px, coarse_tiles=raster_p.coarse_tiles,
         bin_capacity=raster_p.bin_capacity, tile_capacity=raster_p.tile_capacity,
+        col_capacity=raster_p.col_capacity, chunk=raster_p.chunk,
     )
     p = model.params
     splat_args = (p.xyz, torch.exp(p.scaling), p.rotation,

@@ -145,15 +145,17 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
         scaling_lr=opt_p.scaling_lr,
         rotation_lr=opt_p.rotation_lr,
     )
-    # What the cuda backend on one device reads; the tiled backend's and the
-    # multi-device knobs of RasterParams parse and are not passed on.
+    # Every knob a backend on one device reads; the multi-device knobs of
+    # RasterParams parse and are not passed on.
     raster_kwargs = dict(
-        backend=raster_p.backend,
+        backend=raster_p.backend, tile_px=raster_p.tile_px,
+        coarse_tiles=raster_p.coarse_tiles,
         bin_capacity=raster_p.bin_capacity,
         tile_capacity=raster_p.tile_capacity,
         col_capacity=raster_p.col_capacity,
         vis_capacity=raster_p.vis_capacity,
         grad_pack_capacity=raster_p.grad_pack_capacity,
+        chunk=raster_p.chunk,
         depth_ratio=pipe_p.depth_ratio,
     )
 

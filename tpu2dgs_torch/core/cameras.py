@@ -66,10 +66,12 @@ def ndc_to_pix(width: int, height: int, znear: torch.Tensor, zfar: torch.Tensor)
     """Row-vector NDC->homogeneous-pixel matrix on znear's device.
 
     Pixel centers land at integer coordinates 0..W-1. No perspective
-    divide: output is (x*w, y*w, z', w)."""
-    znear = torch.as_tensor(znear, dtype=torch.float32)
-    zfar = torch.as_tensor(zfar, dtype=torch.float32, device=znear.device)
-    A = torch.zeros((4, 4), dtype=torch.float32, device=znear.device)
+    divide: output is (x*w, y*w, z', w). float32, or znear's float dtype."""
+    znear = torch.as_tensor(znear)
+    dtype = znear.dtype if znear.is_floating_point() else torch.float32
+    znear = znear.to(dtype)
+    zfar = torch.as_tensor(zfar, dtype=dtype, device=znear.device)
+    A = torch.zeros((4, 4), dtype=dtype, device=znear.device)
     A[0, 0] = width / 2.0
     A[0, 3] = (width - 1) / 2.0
     A[1, 1] = height / 2.0
@@ -155,7 +157,7 @@ def view_to_pix_matrix(cam: CameraArrays, width: int, height: int) -> torch.Tens
             [0.0, height / 2.0, 0.0, height / 2.0],
             [0.0, 0.0, 0.0, 1.0],
         ],
-        dtype=torch.float32, device=cam.world_view.device,
+        dtype=cam.world_view.dtype, device=cam.world_view.device,
     ).T  # (4,3) row-vector ndc->pix(3)
     c2w = torch.linalg.inv(cam.world_view)
     view2clip = c2w @ cam.full_proj
@@ -168,8 +170,8 @@ def depth_to_points(cam: CameraArrays, depth: torch.Tensor, width: int, height: 
     dev = depth.device
     K = view_to_pix_matrix(cam, width, height)
     Kinv = torch.linalg.inv(K)
-    xs = torch.arange(width, dtype=torch.float32, device=dev)
-    ys = torch.arange(height, dtype=torch.float32, device=dev)
+    xs = torch.arange(width, dtype=depth.dtype, device=dev)
+    ys = torch.arange(height, dtype=depth.dtype, device=dev)
     gx, gy = torch.meshgrid(xs, ys, indexing="xy")  # (H,W)
     pix = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # (H,W,3)
     rays_view = pix @ Kinv

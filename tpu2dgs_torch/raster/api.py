@@ -6,10 +6,20 @@ rend_normal, rend_dist, surf_depth, surf_normal, depth_expected,
 depth_median, radii, visibility_filter, mean2d, plus the backend's
 overflow counters) with CHW image layouts and the same allmap decoding.
 
-Backends: "cuda" (the counterpart of the JAX "pallas" backend: the select
-kernel and the forward and backward blend kernels). "oracle" and "tiled"
-are named for parity and raise NotImplementedError until they are ported,
-as do `mesh=` and `shard_splats=`.
+Backends, all held against the oracle:
+
+  "cuda"    the counterpart of the JAX "pallas" backend: the select kernel
+            and the forward and backward blend kernels. The port's default,
+            where the JAX package defaults to "tiled": on the GPU the
+            kernels are this package's fast path, and the plain backends
+            below are kept for parity and as references.
+  "oracle"  every splat against every pixel (raster/oracle.py), plain
+            PyTorch under autograd: the executable spec.
+  "tiled"   square-tile binning and a batched blend (raster/tiled.py),
+            plain PyTorch under autograd.
+
+`mesh=` and `shard_splats=` (multi-device rendering) raise
+NotImplementedError until the multi-device slice.
 
 `render` is differentiable with respect to xyz, scaling, rotation,
 opacity, features and `mean2d_offset`, whichever of them require grad. A
@@ -30,6 +40,8 @@ from tpu2dgs_torch.core import transforms
 from tpu2dgs_torch.core.cameras import CameraArrays, depth_to_normal
 from tpu2dgs_torch.raster import preprocess as pre
 from tpu2dgs_torch.raster.cuda_backend import rasterize_cuda
+from tpu2dgs_torch.raster.oracle import rasterize_oracle
+from tpu2dgs_torch.raster.tiled import rasterize_tiled
 
 BACKENDS = ("cuda", "oracle", "tiled")
 
@@ -53,6 +65,10 @@ class RasterSettings:
     grad_pack_capacity: int = 0  # backward packed gradient rows (0 = 16 *
                                  # tile_capacity * image tile columns);
                                  # reported by grad_pack_overflow_frac
+    # The tiled backend's knobs (the cuda backend's tiles are 16x128):
+    tile_px: int = 16            # fine tile edge in pixels
+    coarse_tiles: int = 4        # fine tiles per coarse bin edge
+    chunk: int = 32              # splats composited per step (tiled, oracle)
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -87,11 +103,10 @@ def render(
     outside preprocess and feed them back through `override_color` /
     `axes_override`, as the reference PipelineParams do. `plain=True`
     runs the kernels' plain PyTorch versions, forward and backward, on
-    any device: what the kernels are held against."""
+    any device: what the kernels are held against. The oracle and tiled
+    backends have no kernel and ignore it."""
     if mesh is not None or shard_splats:
         raise NotImplementedError("multi-device rendering is not ported yet")
-    if settings.backend != "cuda":
-        raise NotImplementedError(f"the {settings.backend!r} backend is not ported yet")
     dev = default_device(device)
 
     def on(x):
@@ -119,7 +134,12 @@ def render(
         mean2d_offset=mean2d_offset, scale_modifier=settings.scale_modifier,
         live=live, override_color=override_color, axes_override=axes_override)
 
-    image, allmap = rasterize_cuda(splats, settings, bg_color, plain=plain)
+    if settings.backend == "oracle":
+        image, allmap = rasterize_oracle(splats, w, h, bg_color, chunk=settings.chunk)
+    elif settings.backend == "tiled":
+        image, allmap = rasterize_tiled(splats, settings, bg_color)
+    else:
+        image, allmap = rasterize_cuda(splats, settings, bg_color, plain=plain)
     aux = {k: allmap.pop(k) for k in list(allmap) if k.startswith("_aux_")}
     out = decode_outputs(cam, settings, splats, image, allmap)
     for k, v in aux.items():

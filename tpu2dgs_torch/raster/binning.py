@@ -8,7 +8,13 @@
   2. Selecting the first `cap` hits of a row is "indices of the first cap
      set bits" of a hit matrix: `first_k_hits` (a cumsum and a row-wise
      searchsorted), the building block of the select kernel's plain
-     version.
+     version and of the tiled backend's two levels, `select_coarse` (bins
+     against the compacted splats) and `select_fine` (tiles against their
+     bin's candidates).
+
+Every output here is integer or a selection and equals the JAX package's
+bit for bit; the tiled backend runs it as plain PyTorch on the caller's
+device, as the JAX package runs it on XLA (no Pallas kernel reaches it).
 """
 
 from __future__ import annotations
@@ -18,6 +24,10 @@ from typing import NamedTuple
 import torch
 
 from tpu2dgs_torch.raster.preprocess import SplatScreen
+
+# Bound on the bool hit matrix + int32 cumsum made per selection group:
+# select_coarse takes its rows in groups so group_rows * M stays under this.
+_MAX_ELEMENTS = 32 * 1024 * 1024
 
 
 class Compacted(NamedTuple):
@@ -78,6 +88,17 @@ def compact_visible(splats: SplatScreen, k: int) -> Compacted:
     return Compacted(perm, valid, num_visible, x0, x1, y0, y1, dep)
 
 
+def searchsorted_rows(csum: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Row-wise first index where csum[r, i] >= target, for each target.
+
+    csum: (R, M) nondecreasing int32 rows. targets: (C,) int32 >= 1.
+    Returns (R, C) int64 in [0, M] (M where a row never reaches the
+    target): the positions of the JAX package's binary search, found by
+    torch.searchsorted (left side: the first i with target <= csum[r, i])."""
+    r, c = csum.shape[0], targets.shape[0]
+    return torch.searchsorted(csum.contiguous(), targets.expand(r, c).contiguous())
+
+
 def first_k_hits(hit: torch.Tensor, cap: int):
     """Positions of the first `cap` True entries per row, in order.
 
@@ -86,6 +107,49 @@ def first_k_hits(hit: torch.Tensor, cap: int):
     csum = torch.cumsum(hit.to(torch.int32), dim=1, dtype=torch.int32)
     counts = csum[:, -1]
     targets = torch.arange(1, cap + 1, dtype=torch.int32, device=hit.device)
-    pos = torch.searchsorted(csum, targets.expand(csum.shape[0], cap).contiguous())
+    pos = searchsorted_rows(csum, targets)
     valid = targets[None, :] <= counts[:, None]
+    return torch.where(valid, pos, 0), valid, counts
+
+
+def _overlaps(x0, x1, y0, y1, bx0, bx1, by0, by1):
+    return (x0 <= bx1) & (x1 >= bx0) & (y0 <= by1) & (y1 >= by0)
+
+
+def select_coarse(comp: Compacted, bx0, bx1, by0, by1, cap: int):
+    """First-`cap` depth-ordered splats per coarse bin.
+
+    bx0..by1: (NB,) f32 bin pixel rectangles (inclusive).
+    Returns (pos (NB, cap) int64 compacted slots, valid, counts (NB,)).
+    Rows are taken in groups to bound the (rows x K) hit matrix."""
+    nb = bx0.shape[0]
+    k = comp.x0.shape[0]
+    group = max(1, min(nb, _MAX_ELEMENTS // max(k, 1)))
+    outs = []
+    for g in range(0, nb, group):
+        sl = slice(g, g + group)
+        hit = _overlaps(comp.x0[None], comp.x1[None], comp.y0[None], comp.y1[None],
+                        bx0[sl, None], bx1[sl, None], by0[sl, None], by1[sl, None])
+        outs.append(first_k_hits(hit, cap))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def select_fine(comp: Compacted, cand_pos, cand_valid, bin_of_tile,
+                tx0, tx1, ty0, ty1, cap: int):
+    """Refine coarse candidate lists to per-tile lists (order kept).
+
+    cand_pos/cand_valid: (NB, B) coarse output. bin_of_tile: (T,) int.
+    tx0..ty1: (T,) f32 tile rectangles. Returns (pos (T, cap) compacted
+    slots, valid (T, cap), counts (T,))."""
+    cx0 = torch.where(cand_valid, comp.x0[cand_pos], 1e9)
+    cx1 = torch.where(cand_valid, comp.x1[cand_pos], -1e9)
+    cy0 = torch.where(cand_valid, comp.y0[cand_pos], 1e9)
+    cy1 = torch.where(cand_valid, comp.y1[cand_pos], -1e9)
+
+    hit = _overlaps(
+        cx0[bin_of_tile], cx1[bin_of_tile], cy0[bin_of_tile], cy1[bin_of_tile],
+        tx0[:, None], tx1[:, None], ty0[:, None], ty1[:, None],
+    )  # (T, B)
+    sel, valid, counts = first_k_hits(hit, cap)
+    pos = torch.gather(cand_pos[bin_of_tile], 1, sel)
     return torch.where(valid, pos, 0), valid, counts

@@ -420,6 +420,23 @@ def select_values(row_rects, cand_channels, parent_of_row, cap: int,
                    parent_counts, pad_vals, box_idx, exact_idx)
 
 
+def select_rows(row_rects, cand_boxes, parent_of_row, cap: int, parent_counts=None):
+    """First-`cap` overlap positions per row, in candidate order.
+
+    Position-returning wrapper over `select_values` (the select kernel on a
+    CUDA tensor, its plain version on a CPU one): carries a per-parent
+    iota channel through the compaction, so pos[r, j] indexes the parent's
+    M axis. cand_boxes: the (cx0, cx1, cy0, cy1) (NP, M) f32 AABBs. Returns
+    (pos (R, cap) int32, zero-filled past the count, and counts (R,) int32:
+    TOTAL overlaps, which may exceed cap)."""
+    np_, m = cand_boxes[0].shape
+    g = torch.arange(m, dtype=torch.float32, device=cand_boxes[0].device)
+    channels, counts = select_values(
+        row_rects, tuple(cand_boxes) + (g[None, :].expand(np_, m),), parent_of_row, cap,
+        parent_counts=parent_counts, pad_vals=BOX_PADS + (0.0,))
+    return channels[:, 4].to(torch.int32), counts
+
+
 def select_values_plain(row_rects, cand_channels, parent_of_row, cap: int,
                         parent_counts=None, pad_vals=None, box_idx=(0, 1, 2, 3),
                         exact_idx: tuple | None = None):

@@ -10,11 +10,13 @@
     growth of the rasterizer's capacities from its overflow counters, a
     rolling Mpix/s counter.
 
-The step launches the select kernel three times and the forward and the
-backward blend kernel once each per view. Nothing in it reads a value
-back to the host: the loss is read every `loss_sync_interval` steps and
-the overflow counters once per densification interval, so the host keeps
-enqueueing ahead of the device.
+On the cuda backend the step launches the select kernel three times and
+the forward and the backward blend kernel once each per view; the tiled
+and oracle backends train through plain PyTorch autograd, and the tiled
+backend's overflow counters heal its caps the same way. Nothing in the
+step reads a value back to the host: the loss is read every
+`loss_sync_interval` steps and the overflow counters once per
+densification interval, so the host keeps enqueueing ahead of the device.
 
 Densification gradients: the gradient with respect to the `mean2d_offset`
 argument of render, converted from pixel units to NDC half-extent units
@@ -347,10 +349,12 @@ class Trainer:
         val = self.raster_kwargs.get(kwarg)
         if val is None:
             val = getattr(RasterSettings, kwarg)  # dataclass field default
-        if kwarg == "grad_pack_capacity" and not val:
+        if (kwarg == "grad_pack_capacity" and not val
+                and self.raster_kwargs.get("backend", "cuda") == "cuda"):
             # 0 = derived default: 16 * group-rounded tile capacity * image
-            # tile columns, an upper bound of the backend's own derivation
-            # (cuda_backend.blend_binned)
+            # tile columns, an upper bound of the cuda backend's own
+            # derivation (cuda_backend.blend_binned); the plain backends pack
+            # no gradient rows
             tc = self._current_cap("tile_capacity")
             val = 16 * _round_group(tc) * (-(-self.width // BX))
         return int(val)
