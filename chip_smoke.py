@@ -16,6 +16,14 @@ main path:
            densification rounds, capacity growth and the overflow healing
            checks, and one of its gradients is held against the same
            gradient through the plain versions.
+  rows     tile rows over ranks on the shell: the blend kernels at a
+           tile-row offset (rank 1's strip of a two-way split) against
+           their plain versions; strips and work windows for 2, 4 and 8
+           ranks rendered one by one and stitched against the full frame
+           (lists and pixels); two ranks sharing the card over gloo
+           through render(mesh=) and Trainer(mesh=), against one rank, K1
+           3 / K2 1 / K3 1 launches per rank and step. Two ranks on one
+           card check results; they measure no scaling.
   cli      the shell training set written to disk as a COLMAP dataset,
            cli.train from a fresh start with its ground truth kept on the
            host, a resume from its checkpoint at full width, cli.render
@@ -45,7 +53,8 @@ with its launches, times and bound, and the last line is
 
 Any failed check exits nonzero before that line. Needs a CUDA device, nvcc
 and g++; imports nothing of JAX. `python3 chip_smoke.py kernels` stops
-after the kernel checks and prints no verdict.
+after the kernel checks, and `python3 chip_smoke.py rows` runs the build
+and the rows phase alone; neither prints a verdict.
 """
 
 from __future__ import annotations
@@ -78,7 +87,8 @@ from tpu2dgs_torch.mesh import cull, extract, marching, tsdf
 from tpu2dgs_torch.model import splats as splats_lib
 from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.native import knn as native_knn
-from tpu2dgs_torch.raster import api, cuda_backend, preprocess, select_kernel
+from tpu2dgs_torch.parallel import distributed, rehearsal, sharded
+from tpu2dgs_torch.raster import api, binning, cuda_backend, preprocess, select_kernel
 from tpu2dgs_torch.train import checkpoint, loop
 
 W = H = 800
@@ -92,6 +102,12 @@ VIEWS = 4
 # images are rendered untruncated, so the trainer, which starts from the
 # bench capacities, renders them better once its healing has raised them.
 GT_CAPS = dict(bin_capacity=20480, tile_capacity=10240, col_capacity=61440)
+# The rows phase: strips and work windows for these device counts, and the
+# two ranks that share the one card for render(mesh=) and ROWS_STEPS
+# Trainer(mesh=) steps.
+ROWS_SPLITS = (2, 4, 8)
+ROWS_RANKS = 2
+ROWS_STEPS = 4
 TRAIN_STEPS = 24
 TRAIN_VIEWS = 4  # one epoch of the camera shuffle: first and last 4 steps see every view
 # The command-line phase: 4 views on disk (3 to train on, 1 held out), a
@@ -121,6 +137,14 @@ MESH_SAMPLES = 1 << 18   # area-weighted samples of a mesh, from seed 0
 # float32 rate outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+# One SM of the 132: the reduction probes run one block by design (the TPU
+# probe's grid is (1,)), so their bound is one SM's. Its share of the f32
+# and dense bf16 tensor-core peaks, and its shared memory: 128 bytes a
+# clock at the 1,980 MHz boost clock (33.4 TB/s over the card).
+SMS = 132
+SM_F32_S = PEAK_F32_S / SMS
+SM_BF16_S = 989e12 / SMS
+SM_SMEM_BYTES_S = 128 * 1.98e9
 # Operations per (candidate, row) of the select kernel's hit tests and per
 # (record, pixel) of the blend, counted from the kernels' source.
 BOX_TEST_OPS = 7
@@ -193,6 +217,7 @@ KEYS = ["render", "rend_alpha", "rend_normal", "rend_dist", "surf_depth",
         "surf_normal", "depth_median"]
 OVERFLOW = ["tile_overflow_frac", "bin_overflow_frac", "col_overflow_frac",
             "vis_overflow", "grad_pack_overflow_frac", "tile_count_max"]
+FIRES = OVERFLOW[:5]  # the counters that say a list was cut
 
 
 def emit(obj) -> None:
@@ -237,7 +262,7 @@ def bench_inputs(settings):
         out = api.render(cam, settings, *scene, torch.zeros(3, device=scene[0].device))
     if len(selects) != 3 or len(blends) != 1:
         fail(f"bench render made {len(selects)} select and {len(blends)} blend calls")
-    return out, selects, blends[0][0]
+    return out, selects, blends[0][0][:3]  # (rec3, counts, nty); row0 is 0
 
 
 def select_walk_m(kwargs) -> int:
@@ -353,12 +378,22 @@ def reduce_check():
     planes = base[None] * f + f
     planes_sum_ms = cuda_ms(lambda: planes.sum(dim=1), reps=20)
     del planes
-    # Bound: per step 16 planes of 2048 values, each built (a multiply and
-    # an add) and summed (an add), and 16 rows of 128 weighted and added.
-    ops = steps * (reduce_probe.NPLANES * reduce_probe.BY * reduce_probe.BX * 3
-                   + reduce_probe.NPLANES * reduce_probe.BX * 2)
-    bytes_ = 4 * (reduce_probe.BY * reduce_probe.BX + reduce_probe.BX)
-    bound_ms, bound_by = bound(bytes_, ops)
+    # Bounds on the one SM each kernel runs on. Shuffle: per step 16 planes
+    # of 2048 values, each built (a multiply and an add) and summed (an
+    # add), and 16 rows of 128 weighted and added, at one SM's f32 rate.
+    # Tensor cores: the selector products (three bfloat16 parts of each
+    # plane) at one SM's bf16 rate, and the plane values and their splits
+    # (4 f32 operations a value) at its f32 rate. The kernel as written
+    # also stages the three parts through shared memory, written once and
+    # read once by the products: a cost of its design, not of the function
+    # (fragments can be built in registers), reported beside the bound.
+    plane_values = reduce_probe.NPLANES * reduce_probe.BY * reduce_probe.BX
+    ops = steps * (plane_values * 3 + reduce_probe.NPLANES * reduce_probe.BX * 2)
+    mma_ops_s = (steps * 3 * 2 * reduce_probe.NPLANES * plane_values / SM_BF16_S
+                 + steps * plane_values * 4 / SM_F32_S)
+    smem_staging_ms = steps * 2 * 3 * plane_values * 2 / SM_SMEM_BYTES_S * 1e3
+    bounds = {"reduce_probe_shuffle": (ops / SM_F32_S * 1e3, "operations"),
+              "reduce_probe_mma": (mma_ops_s * 1e3, "operations")}
     infos = {}
     for name in ("reduce_probe_shuffle", "reduce_probe_mma"):
         fn = getattr(reduce_probe, name)
@@ -373,18 +408,21 @@ def reduce_check():
         infos[name] = dict(steps=steps, acc0=float(got[0]), plain_acc0=float(ref[0]),
                            max_rel_err=rel, max_abs_err=float((got - ref).abs().max()),
                            ms=ms, ns_per_set=ms * 1e6 / steps, plain_ms=plain_ms,
-                           planes_sum_ms=planes_sum_ms, bound_ms=bound_ms, bound_by=bound_by)
+                           planes_sum_ms=planes_sum_ms, bound_ms=bounds[name][0],
+                           bound_by=bounds[name][1], bound_scope="one SM")
+        if name == "reduce_probe_mma":
+            infos[name]["smem_staging_ms"] = smem_staging_ms
         emit({"phase": "kernels", "kernel": name, **infos[name]})
     return infos
 
 
-def pair_counts(rec3, counts, out, nty) -> tuple[int, int]:
+def pair_counts(rec3, counts, out, nty, row0=0) -> tuple[int, int]:
     """(hit pairs, blended pairs) of the lists: (record, pixel) pairs that
     pass the blend's hit test at or before their tile's last contributor,
     and of those the pairs that blended (at or before the pixel's own last
     contributor). All tiles in lockstep, the forward's hit test."""
     t = rec3.shape[0]
-    px, py = cuda_backend._tile_planes(t, nty, rec3.device)
+    px, py = cuda_backend._tile_planes(t, nty, rec3.device, row0)
     last = out[:, 12]
     tile_last = last.amax(dim=(1, 2))
     hits = torch.zeros((), dtype=torch.int64, device=rec3.device)
@@ -398,18 +436,18 @@ def pair_counts(rec3, counts, out, nty) -> tuple[int, int]:
     return int(hits), int(blended)
 
 
-def cull_share(rec3, counts, nty, rows=cuda_backend.BY) -> float:
+def cull_share(rec3, counts, nty, rows=cuda_backend.BY, row0=0) -> float:
     """Share of the live (record, block) pairs that exact coverage keeps:
     with rows = 16 the blocks are the 16x16 sub-tiles, with rows = 4 the
     16x4 blocks of the warps, the cull the blend kernels run."""
-    kept = int(cuda_backend.subtile_coverage(rec3, counts, nty, rows).sum())
+    kept = int(cuda_backend.subtile_coverage(rec3, counts, nty, rows, row0).sum())
     blocks = cuda_backend.BX // cuda_backend.SUB * (cuda_backend.BY // rows)
     return kept / max(1, int(counts.to(torch.int64).sum()) * blocks)
 
 
-def cull_shares(rec3, counts, nty) -> dict:
-    return {"cull_pass_share": cull_share(rec3, counts, nty),
-            "cull_warp_pass_share": cull_share(rec3, counts, nty, rows=4)}
+def cull_shares(rec3, counts, nty, row0=0) -> dict:
+    return {"cull_pass_share": cull_share(rec3, counts, nty, row0=row0),
+            "cull_warp_pass_share": cull_share(rec3, counts, nty, rows=4, row0=row0)}
 
 
 def longest_alone(counts, out):
@@ -423,21 +461,24 @@ def longest_alone(counts, out):
     return torch.where(keep, counts, 0).to(counts.dtype), alone_out
 
 
-def blend_check(rec3, counts, nty):
-    """Hold the blend kernel against its plain version on the bench lists."""
-    got = cuda_backend.blend_tiles(rec3, counts, nty)
-    ref = cuda_backend.blend_tiles_plain(rec3, counts, nty)
+def blend_check(rec3, counts, nty, row0=0):
+    """Hold the blend kernel against its plain version on the bench lists
+    (of the strip from tile row `row0`)."""
+    got = cuda_backend.blend_tiles(rec3, counts, nty, row0)
+    ref = cuda_backend.blend_tiles_plain(rec3, counts, nty, row0)
     torch.cuda.synchronize()
     err = float((got[:, :12] - ref[:, :12]).abs().max())
     flips = float((got[:, 12] != ref[:, 12]).to(torch.float32).mean())
     if not (math.isfinite(err) and err <= KERNEL_TOL and flips <= LAST_FLIP_FRAC):
-        fail(f"blend: kernel vs plain max|d| {err} (tol {KERNEL_TOL}), "
+        fail(f"blend at row0 {row0}: kernel vs plain max|d| {err} (tol {KERNEL_TOL}), "
              f"last-contributor flips {flips} (tol {LAST_FLIP_FRAC})")
-    ms = cuda_ms(lambda: cuda_backend.blend_tiles(rec3, counts, nty), reps=20)
-    plain_ms = cuda_ms(lambda: cuda_backend.blend_tiles_plain(rec3, counts, nty),
-                       reps=2, warmup=1)
+    ms = cuda_ms(lambda: cuda_backend.blend_tiles(rec3, counts, nty, row0), reps=20)
+    # the plain version is timed on the full frame only (row0 = 0)
+    plain_ms = None if row0 else cuda_ms(
+        lambda: cuda_backend.blend_tiles_plain(rec3, counts, nty, row0), reps=2, warmup=1)
     alone_counts, _ = longest_alone(counts, ref)
-    longest_ms = cuda_ms(lambda: cuda_backend.blend_tiles(rec3, alone_counts, nty), reps=20)
+    longest_ms = cuda_ms(lambda: cuda_backend.blend_tiles(rec3, alone_counts, nty, row0),
+                         reps=20)
 
     # Bound: a pixel's records must be read up to its tile's last
     # contributor at least; 21 record floats each, read once, the output
@@ -447,26 +488,27 @@ def blend_check(rec3, counts, nty):
     t = rec3.shape[0]
     needed = (ref[:, 12].amax(dim=(1, 2)) + 1).clamp(min=0).to(torch.int64)
     pairs = int(needed.sum()) * cuda_backend.BY * cuda_backend.BX
-    hits, blended = pair_counts(rec3, counts, ref, nty)
+    hits, blended = pair_counts(rec3, counts, ref, nty, row0)
     bytes_ = 4 * (int(needed.sum()) * 21 + t + got.numel())
     bound_ms, bound_by = bound(bytes_, hits * BLEND_OPS)
-    info = dict(tiles=t, capk=rec3.shape[2], walked=int(counts.sum()),
+    info = dict(row0=row0, tiles=t, capk=rec3.shape[2], walked=int(counts.sum()),
                 needed=int(needed.sum()), pairs=pairs, hit_pairs=hits, blended_pairs=blended,
-                **cull_shares(rec3, counts, nty), ms=ms, longest_tile_ms=longest_ms,
+                **cull_shares(rec3, counts, nty, row0), ms=ms, longest_tile_ms=longest_ms,
                 plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 bound_all_pairs_ms=bound(bytes_, pairs * BLEND_OPS)[0],
                 max_abs_err=err, last_flip_frac=flips)
-    emit({"phase": "kernels", "kernel": "blend_tiles", **info})
+    emit({"phase": "kernels" if row0 == 0 else "rows", "kernel": "blend_tiles", **info})
     return info
 
 
-def backward_check(rec3, counts, nty):
+def backward_check(rec3, counts, nty, row0=0):
     """Hold the backward blend kernel against its plain version on the
-    bench lists, with room in the packed array and with too little."""
+    bench lists (of the strip from tile row `row0`), with room in the
+    packed array and with too little."""
     dev = rec3.device
     t, _, capk = rec3.shape
-    out = cuda_backend.blend_tiles(rec3, counts, nty)
+    out = cuda_backend.blend_tiles(rec3, counts, nty, row0)
     gen = torch.Generator(device=dev).manual_seed(0)
     dout = torch.randn(out.shape, device=dev, generator=gen)
     dout[:, 9] *= 0.01  # the distortion map's cotangent is small in training
@@ -482,7 +524,7 @@ def backward_check(rec3, counts, nty):
              "overflow": max(grp, (demand // 2) // grp * grp)}
     info = {}
     for name, pack_cap in cases.items():
-        args = (rec3, counts, off, out, dout, nty, pack_cap)
+        args = (rec3, counts, off, out, dout, nty, pack_cap, row0)
         got = cuda_backend.blend_tiles_backward(*args)
         again = cuda_backend.blend_tiles_backward(*args)
         ref = cuda_backend.blend_tiles_backward_plain(*args)
@@ -490,9 +532,9 @@ def backward_check(rec3, counts, nty):
         written = min(demand, pack_cap)
         g, a, r = got[:written], again[:written], ref[:written]
         if not bits_equal(g, a):
-            fail(f"backward {name}: two launches on the same inputs differ")
+            fail(f"backward {name} at row0 {row0}: two launches on the same inputs differ")
         if not torch.equal(g[:, 19], r[:, 19]):
-            fail(f"backward {name}: slot column differs from plain "
+            fail(f"backward {name} at row0 {row0}: slot column differs from plain "
                  f"({int((g[:, 19] != r[:, 19]).sum())} rows)")
         row_scale = r[:, :19].abs().amax(dim=1).clamp(min=1e-30)
         row_err = float(((g[:, :19] - r[:, :19]).abs().amax(dim=1) / row_scale).max())
@@ -504,23 +546,24 @@ def backward_check(rec3, counts, nty):
         rerun = float((gs - gs2).abs().max())
         if not (math.isfinite(row_err) and row_err <= BWD_ROW_TOL
                 and math.isfinite(err) and err <= BWD_SCATTER_TOL * scale):
-            fail(f"backward {name}: kernel vs plain row error {row_err} (tol {BWD_ROW_TOL}), "
+            fail(f"backward {name} at row0 {row0}: kernel vs plain row error {row_err} "
+                 f"(tol {BWD_ROW_TOL}), "
                  f"scattered max|d| {err} against max|grad| {scale} (tol {BWD_SCATTER_TOL})")
         if float(gs[:, 19:].abs().max()) != 0.0:
-            fail(f"backward {name}: record channels 19:24 received a gradient")
+            fail(f"backward {name} at row0 {row0}: record channels 19:24 received a gradient")
         info[name] = dict(pack_cap=pack_cap, written=written, row_rel_err=row_err,
                           max_abs_err=err, grad_max=scale, scatter_rerun_max_abs=rerun)
     if cases["overflow"] >= demand:
         fail("backward: the overflow case has room")
 
-    args = (rec3, counts, off, out, dout, nty, cases["room"])
+    args = (rec3, counts, off, out, dout, nty, cases["room"], row0)
     ms = cuda_ms(lambda: cuda_backend.blend_tiles_backward(*args), reps=20)
     got = cuda_backend.blend_tiles_backward(*args)
     scatter_ms = cuda_ms(lambda: cuda_backend.scatter_packed(got, eff, n_rec), reps=20)
-    plain_ms = cuda_ms(lambda: cuda_backend.blend_tiles_backward_plain(*args),
-                       reps=1, warmup=0)
+    plain_ms = None if row0 else cuda_ms(
+        lambda: cuda_backend.blend_tiles_backward_plain(*args), reps=1, warmup=0)
     alone_counts, alone_out = longest_alone(counts, out)
-    alone_args = (rec3, alone_counts, off, alone_out, dout, nty, cases["room"])
+    alone_args = (rec3, alone_counts, off, alone_out, dout, nty, cases["room"], row0)
     longest_ms = cuda_ms(lambda: cuda_backend.blend_tiles_backward(*alone_args), reps=20)
 
     # Bound: the 22 read channels of every record up to its tile's last
@@ -531,19 +574,20 @@ def backward_check(rec3, counts, nty):
     # to the tile's last contributor, as a kernel without a cull computes it.
     needed = (out[:, 12].amax(dim=(1, 2)) + 1).clamp(min=0).to(torch.int64)
     pairs = int(needed.sum()) * cuda_backend.BY * cuda_backend.BX
-    hits, blended = pair_counts(rec3, counts, out, nty)
+    hits, blended = pair_counts(rec3, counts, out, nty, row0)
     plane = cuda_backend.BY * cuda_backend.BX
     bytes_ = 4 * (int(needed.sum()) * 22 + 2 * t + t * plane * (4 + 10)
                   + demand * cuda_backend.OUTREC)
     bound_ms, bound_by = bound(bytes_, hits * BWD_RESPONSE_OPS + blended * BWD_BLENDED_OPS)
-    info.update(tiles=t, capk=capk, group=grp, demand=demand, needed=int(needed.sum()),
+    info.update(row0=row0, tiles=t, capk=capk, group=grp, demand=demand, needed=int(needed.sum()),
                 pairs=pairs, hit_pairs=hits, blended_pairs=blended, ms=ms,
                 longest_tile_ms=longest_ms,
                 scatter_ms=scatter_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bound_all_pairs_ms=bound(bytes_, pairs * BWD_RESPONSE_OPS
                                          + blended * BWD_BLENDED_OPS)[0],
                 max_abs_err=info["room"]["max_abs_err"])
-    emit({"phase": "kernels", "kernel": "blend_tiles_backward", **info})
+    emit({"phase": "kernels" if row0 == 0 else "rows", "kernel": "blend_tiles_backward",
+          **info})
     return info
 
 
@@ -1334,6 +1378,212 @@ def serve(settings, out_dir: Path):
     return launches
 
 
+def strip_lists(splats, settings, bg, **strip):
+    """rasterize_cuda of a strip or window of the shell view (the kernels),
+    its lists and counts as the blend kernel got them, and its device ms."""
+    blends = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with record_calls(cuda_backend, "blend_tiles", blends):
+        start.record()
+        img, allmap = cuda_backend.rasterize_cuda(splats, settings, bg, **strip)
+        end.record()
+    end.synchronize()
+    rec3, counts = blends[0][0][:2]
+    return img, allmap, rec3, counts, start.elapsed_time(end)
+
+
+def fired(allmap) -> dict:
+    """The overflow counters of a backend's allmap that fired."""
+    return {k: float(allmap[f"_aux_{k}"]) for k in FIRES if float(allmap[f"_aux_{k}"]) > 0}
+
+
+def split_check(splats, settings, bg, full, n_dev: int, balanced: bool) -> dict:
+    """The shell view rendered strip by strip (static, `n_dev` strips of
+    whole coarse-bin rows) or window by window (`balanced`, the work
+    quantiles), at capacities where no counter fires, stitched: each tile's
+    list equal to the full frame's less the entries whose binning box
+    misses the strip's rows, and every pixel bit-equal.
+
+    The less: binning's L2 and L3 test exact coverage alone, and the conic
+    of a surfel seen near edge-on can be a hyperbola whose far branch
+    reaches tiles its box does not; no pixel passes the blend's test there.
+    L1 tests the box against the strip's (or the window's) rows, so a strip
+    drops such an entry where the full frame, binning all rows, keeps it
+    in its lists (in the JAX package as in the port)."""
+    full_img, full_rec3, full_counts, y0_of, y1_of = full
+    by, cby = cuda_backend.BY, cuda_backend.CBY
+    nty, nbx = -(-H // by), -(-W // cuda_backend.BX)
+    if balanced:  # as parallel/sharded.py renders a window
+        c, e = splats.box_center, splats.box_half
+        b = sharded._balance_boundaries(c[:, 0] - e[:, 0], c[:, 0] + e[:, 0], c[:, 1] - e[:, 1],
+                                        c[:, 1] + e[:, 1], splats.visible, W, nty, n_dev,
+                                        tile_cap=settings.tile_capacity).tolist()
+        parts = [(lo // cby * cby, max(hi - lo // cby * cby, 1), lo, hi)
+                 for lo, hi in zip(b[:-1], b[1:])]
+    else:  # strips of whole coarse-bin rows; the last may lie below the image
+        per = -(-(-(-nty // n_dev)) // cby) * cby
+        parts = [(d * per, per, min(d * per, nty), min((d + 1) * per, nty))
+                 for d in range(n_dev)]
+    rows, works, ms, buffer_rows, dropped = [], [], [], [], 0
+    label = f"{'windows' if balanced else 'strips'} x{n_dev}"
+    for row0, n_loc, lo, hi in parts:
+        win = dict(row_lo=lo, row_hi=hi) if balanced else {}
+        img, allmap, rec3, counts, t_ms = strip_lists(splats, settings, bg, tile_row0=row0,
+                                                      nty_local=n_loc, **win)
+        if fired(allmap):
+            fail(f"rows: {label}: counters fired {fired(allmap)}; the check needs room")
+        ms.append(t_ms)
+        works.append(float(allmap["_aux_strip_work"]))
+        buffer_rows.append(img.shape[0])
+        rows.append(img[max(lo - row0, 0) * by:max(hi - row0, 0) * by])
+        if hi <= lo:
+            continue
+        ylo, yhi = ((lo, hi) if balanced else (row0, row0 + n_loc))
+        tix = torch.arange(nbx, device=rec3.device)[:, None]
+        ty = torch.arange(lo, hi, device=rec3.device)[None, :]
+        t, tf = (tix * n_loc + ty - row0).reshape(-1), (tix * nty + ty).reshape(-1)
+        slot = torch.arange(rec3.shape[2], device=rec3.device)[None, :]
+        f_ids = full_rec3[tf, 21].long()
+        f_live = slot < full_counts[tf, None]
+        keep = f_live & (y0_of[f_ids] <= yhi * by - 1) & (y1_of[f_ids] >= ylo * by)
+        s_live = slot < counts[t, None]
+        same = (torch.equal(keep.sum(1), counts[t].long())
+                and torch.equal(f_ids[keep], rec3[t, 21].long()[s_live]))
+        if not same:
+            fail(f"rows: {label}: the lists of tile rows {lo}..{hi - 1} are not the full "
+                 "frame's less the entries whose box misses the strip's rows")
+        dropped += int((f_live & ~keep).sum())
+    stitched = torch.cat(rows)[:H, :W]
+    if not bits_equal(stitched, full_img):
+        fail(f"rows: {label}: stitched image differs from the full frame at "
+             f"{int((stitched != full_img).any(-1).sum())} pixels")
+    mean = float(np.mean(works))
+    return {"rows": [p[2:] for p in parts], "strip_ms": ms, "strip_work": works,
+            "work_max_over_mean": max(works) / mean if mean else None,
+            "buffer_rows": buffer_rows, "far_branch_entries_dropped": dropped}
+
+
+def rows_phase() -> dict:
+    """Tile-row multi-device rendering and training on the 800x800 shell:
+    K2 and K3 at a row offset against their plain versions at the bench
+    capacities; then, at the ground truth's capacities (no counter fires),
+    strips and work windows stitched against the full frame, and two ranks
+    sharing cuda:0 over gloo (render(mesh=) and Trainer(mesh=)) against
+    one. Returns the two ranks' launches (the main path's, counted
+    from zero in each rank) and the K2 and K3 checks at the row offset."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    settings = api.RasterSettings(W, H, **CAPS)
+    # The stitched and two-rank checks run where no counter fires: at the
+    # bench capacities some of the shell's tiles overflow, and a strip keeps
+    # other deepest entries of an overflowing list than the full frame.
+    roomy = api.RasterSettings(W, H, **GT_CAPS)
+    cam, scene = synthetic.make_shell_scene(W, H, N_SPLATS)
+    bg = torch.zeros(3, device=dev)
+    nty = -(-H // cuda_backend.BY)
+    with torch.no_grad():
+        xyz, scaling, rotation, opacity, feats = scene
+        splats = preprocess.preprocess(xyz, scaling, rotation, opacity.reshape(-1), feats, cam,
+                                       W, H, settings.sh_degree)
+        # K2 and K3 on rank 1's strip of a two-way split: tile rows 28 .. 55
+        per = -(-(-(-nty // 2)) // cuda_backend.CBY) * cuda_backend.CBY
+        _, _, rec3, counts, _ = strip_lists(splats, settings, bg, tile_row0=per, nty_local=per)
+    blend = blend_check(rec3, counts, per, row0=per)
+    bwd = backward_check(rec3, counts, per, row0=per)
+    del rec3, counts
+
+    with torch.no_grad():
+        full_img, full_map, full_rec3, full_counts, full_ms = strip_lists(splats, roomy, bg)
+        if fired(full_map):
+            fail(f"rows: full frame counters fired {fired(full_map)}; the check needs room")
+        comp = binning.compact_visible(splats, N_SPLATS)
+        y0_of = torch.empty_like(comp.y0).index_put_((comp.perm,), comp.y0)
+        y1_of = torch.empty_like(comp.y1).index_put_((comp.perm,), comp.y1)
+        full = (full_img, full_rec3, full_counts, y0_of, y1_of)
+        splits = {f"{mode} x{d}": split_check(splats, roomy, bg, full, d, mode == "windows")
+                  for mode in ("strips", "windows") for d in ROWS_SPLITS}
+        del full, full_rec3, comp
+    emit({"phase": "rows", "card": card(), "capacities": GT_CAPS, "full_frame_ms": full_ms,
+          "splits": splits})
+
+    # Two ranks on one card: gloo, each collective staged through host
+    # memory. This checks results; it measures no scaling.
+    cam_obj = synthetic.shell_camera(2 * np.pi * 0.13, W, H)
+    scene_np = tuple(a.cpu().numpy() for a in scene)
+    bg_np = np.zeros(3, np.float32)
+    modes = [api.RasterSettings(W, H, **GT_CAPS, row_balance=rb) for rb in ("static", "work")]
+    cams, model = synthetic.make_shell_training_set(W, H, N_SPLATS, views=TRAIN_VIEWS,
+                                                   **GT_CAPS)
+    start = rehearsal.model_arrays(model)
+    del model
+    kw = dict(spatial_lr_scale=1.0, scene_extent=1.0,
+              train_cfg=loop.TrainConfig(normal_from_iter=0, dist_from_iter=0,
+                                         lambda_dist=100.0),
+              raster_kwargs=dict(GT_CAPS))
+    t0 = time.perf_counter()
+    both = distributed.spawn(
+        rehearsal.each, ROWS_RANKS,
+        args=([(rehearsal.render_rank, (cam_obj, modes, scene_np, bg_np)),
+               (rehearsal.train_rank, (start, cams, W, H, (ROWS_STEPS,), kw, 3))],),
+        device=[dev] * ROWS_RANKS, timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    ranks, trained = zip(*both)
+    one = [rehearsal.render_once(cam_obj, s, scene_np, bg_np, dev) for s in modes]
+    launches = Counter()
+    rendered = {}
+    per_render = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
+    for i, s in enumerate(modes):
+        got = [r[i] for r in ranks]
+        for g in got:
+            if g["launches"] != per_render:
+                fail(f"rows: a rank's render(mesh=) launched {g['launches']}, want {per_render}")
+            launches.update(g["launches"])
+        err = {k: float(np.abs(got[0][k] - one[i][k]).max()) for k in rehearsal.KEYS}
+        ovf = {k: float(got[0][k].max()) for k in FIRES if float(got[0][k].max()) > 0}
+        if (max(err.values()) > RENDER_TOL or ovf
+                or not np.array_equal(got[0]["radii"], one[i]["radii"])):
+            fail(f"rows: two-rank render ({s.row_balance}) against one rank: {err}, "
+                 f"counters fired: {ovf}")
+        grad = {}
+        for p in rehearsal.PARAMS:
+            a, b = got[0][f"grad_{p}"], one[i][f"grad_{p}"]
+            grad[p] = {"max_abs_err": float(np.abs(a - b).max()),
+                       "grad_max": float(np.abs(b).max())}
+        floor = GRAD_FLOOR * max(v["grad_max"] for v in grad.values())
+        bad = {k: v for k, v in grad.items()
+               if not v["max_abs_err"] <= max(GRAD_TOL * v["grad_max"], floor)}
+        if bad or any(not np.array_equal(got[0][f"grad_{p}"], got[1][f"grad_{p}"])
+                      for p in rehearsal.PARAMS):
+            fail(f"rows: two-rank gradients ({s.row_balance}) against one rank: {grad}")
+        rendered[s.row_balance] = {"max_abs_err": err, "grad": grad,
+                                   "strip_rows": got[0]["strip_rows"].tolist(),
+                                   "strip_work": got[0]["strip_work"].tolist()}
+
+    alone = rehearsal.train_once(start, cams, W, H, (ROWS_STEPS,), kw, dev, sh_degree=3)
+    per_step = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
+    for r in trained:
+        if r["launches"] != [per_step] * ROWS_STEPS:
+            fail(f"rows: a rank's Trainer steps launched {r['launches']}, want {per_step} each")
+        for step in r["launches"]:
+            launches.update(step)
+    loss = np.array(trained[0]["loss"])
+    ref = np.array(alone["loss"])
+    if trained[0]["loss"] != trained[1]["loss"] or not np.allclose(loss, ref, rtol=2e-3,
+                                                                    atol=0.0):
+        fail(f"rows: two-rank losses {[r['loss'] for r in trained]} against one rank {ref}")
+    p0, p1 = (r["stops"][0]["params"] for r in trained)
+    if any(not np.array_equal(p0[k], p1[k]) for k in p0):
+        fail("rows: the two ranks' parameters differ")
+    emit({"phase": "rows", "card": card(), "ranks": ROWS_RANKS, "backend": "gloo on cuda:0",
+          "ranks_seconds": ranks_s, "render": rendered,
+          "train_steps": ROWS_STEPS, "loss": trained[0]["loss"], "loss_one_rank": alone["loss"],
+          "xyz_max_abs_vs_one_rank": float(np.abs(p0["xyz"] - alone["stops"][0]["params"]
+                                                  ["xyz"]).max()),
+          "launches_per_rank": trained[0]["launches"][0],
+          "seconds": time.perf_counter() - t_phase})
+    return dict(launches), blend, bwd
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1361,6 +1611,9 @@ def main() -> None:
           "ptxas": ptxas, "blend_occupancy": occupancy,
           "select_occupancy": {"sms": sms, "ctas_per_sm": select_per_sm}})
 
+    if sys.argv[1:] == ["rows"]:
+        rows_phase()  # `python3 chip_smoke.py rows`: build and the rows phase, no verdict
+        return
     settings = api.RasterSettings(W, H, **CAPS)
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)
     levels, level_counts = zip(*(select_level(lv, k)
@@ -1394,6 +1647,9 @@ def main() -> None:
     train_launches = train({k: v for k, v in CAPS.items() if k != "grad_pack_capacity"})
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    rows_launches, blend_row0, bwd_row0 = rows_phase()
+    rows_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cli_launches, mesh_s = cli(out_dir)
     cli_s = time.perf_counter() - t0 - mesh_s
     t0 = time.perf_counter()
@@ -1403,12 +1659,14 @@ def main() -> None:
     gate_launches = quality_gate_phase(out_dir)
     gate_s = time.perf_counter() - t0
     emit({"phase": "seconds", "probe": probe_s, "serve": serve_s, "train": train_s,
-          "cli": cli_s, "mesh": mesh_s, "backends": backends_s, "quality_gate": gate_s,
+          "rows": rows_s, "cli": cli_s, "mesh": mesh_s, "backends": backends_s,
+          "quality_gate": gate_s,
           "total": time.perf_counter() - t_start})
 
     def launched(name):  # cli_launches holds the mesh phase's
         return sum(ph.get(name, 0) for ph in (probe_launches, launches, train_launches,
-                                              cli_launches, backend_launches, gate_launches))
+                                              rows_launches, cli_launches, backend_launches,
+                                              gate_launches))
 
     emit({"kernels": [
         {"name": "select_values", "route": "cuda",
@@ -1441,6 +1699,8 @@ def main() -> None:
          "cull_pass_share": blend["cull_pass_share"],
          "cull_warp_pass_share": blend["cull_warp_pass_share"],
          "longest_tile_ms": blend["longest_tile_ms"],
+         "row0": {k: blend_row0[k] for k in ("row0", "tiles", "max_abs_err", "ms",
+                                              "bound_ms", "bound_by")},
          "occupancy": occupancy["blend_tiles"], "ptxas": ptxas["blend_forward"]},
         {"name": "blend_tiles_backward", "route": "cuda",
          "source": "tpu2dgs_torch/csrc/blend_backward.cu",
@@ -1452,6 +1712,8 @@ def main() -> None:
          "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
          "library_ms": None, "bound_all_pairs_ms": bwd["bound_all_pairs_ms"],
          "longest_tile_ms": bwd["longest_tile_ms"],
+         "row0": {k: bwd_row0[k] for k in ("row0", "tiles", "max_abs_err", "ms",
+                                            "bound_ms", "bound_by")},
          "occupancy": occupancy["blend_tiles_backward"], "ptxas": ptxas["blend_backward"]},
         {"name": "select_counts", "route": "cuda",
          "source": "tpu2dgs_torch/csrc/select_counts.cu",

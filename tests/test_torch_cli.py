@@ -120,13 +120,24 @@ def test_parsers_accept_the_jax_flags():
                 assert ja.default == topts[dest].default, dest
 
 
-def test_unported_arguments_raise(tmp_path):
+def test_unported_arguments_raise(tmp_path, monkeypatch):
+    """--shard_mode splats is the next multi-device slice; --n_devices N
+    (tile rows) runs (tests/test_torch_sharded.py), and refuses what it
+    cannot run before anything is written: more ranks than GPUs, and 0
+    (every GPU) on the CPU."""
     base = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--disable_viewer"]
-    for extra, slice_name in ((["--n_devices", "2"], "multi-device"),
-                              (["--n_devices", "0"], "multi-device"),
-                              (["--shard_mode", "splats"], "multi-device")):
-        with pytest.raises(NotImplementedError, match=slice_name):
+    for extra in (["--shard_mode", "splats"], ["--n_devices", "2", "--shard_mode", "splats"]):
+        with pytest.raises(NotImplementedError, match="next multi-device slice"):
             tcli_train.main(base + extra, device="cpu")
+    with pytest.raises(ValueError, match="counts GPUs"):
+        tcli_train.main(base + ["--n_devices", "0"], device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tcli_train.main(base + ["--n_devices", "2"])  # the GPU run, where there is none
+    with monkeypatch.context() as m:  # one GPU: no fallback to fewer ranks
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="2 ranks need 2 GPUs; this host has 1"):
+            tcli_train.main(base + ["--n_devices", "2"])
     assert not (tmp_path / "out").exists()  # refused before anything was written
     assert tcli_convert.main.__defaults__ == (None, None)  # main(argv=None, device=None)
 

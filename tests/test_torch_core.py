@@ -154,7 +154,8 @@ def test_port_imports_no_jax():
         "        'eval.reduce_probe', 'eval.timing', 'mesh.marching', 'mesh.tsdf',\n"
         "        'mesh.extract', 'mesh.cull', 'eval.geometry', 'eval.trajectory',\n"
         "        'eval.tnt_scene', 'eval.dtu_scene', 'eval.mesh_profile', 'raster.blend',\n"
-        "        'raster.oracle', 'raster.tiled', 'eval.quality_gate')}\n"
+        "        'raster.oracle', 'raster.tiled', 'eval.quality_gate', 'parallel.distributed',\n"
+        "        'parallel.sharded', 'parallel.rehearsal')}\n"
         "assert want <= mods, sorted(want - mods)\n"
         "print(len(mods))\n"
     )

@@ -217,16 +217,17 @@ def _scene(dev, w=256, h=96, n=3000):
     return cam, scene, api.RasterSettings(w, h, bin_capacity=1024, tile_capacity=384)
 
 
-def _lists(dev):
-    """Per-tile record lists of the small scene: (rec3, counts, nty)."""
+def _lists(dev, tile_row0=0, nty=None):
+    """Per-tile record lists of the small scene, or of its strip of `nty`
+    tile rows from `tile_row0`: (rec3, counts, nty)."""
     cam, scene, settings = _scene(dev)
     splats = preprocess.preprocess(*scene, cam, settings.width, settings.height, 3)
     comp = binning.compact_visible(splats, scene[0].shape[0])
     rec = cuda_backend.pack_records(splats)
-    nbx, nty = -(-settings.width // 128), -(-settings.height // 16)
+    nbx, nty = -(-settings.width // 128), nty or -(-settings.height // 16)
     rec3, raw, _, _ = cuda_backend._bin_records(
         comp.x0, comp.x1, comp.y0, comp.y1, comp.num_visible, rec, nbx, nty, 1024, 384,
-        ids=comp.perm)
+        tile_row0, ids=comp.perm)
     return rec3, torch.clamp(raw, max=rec3.shape[2]).to(torch.int32), nty
 
 
@@ -283,15 +284,29 @@ def _crafted(dev, case):
     return torch.where(past[:, None, :], pads, rec3).contiguous(), counts, nty
 
 
-def _blend_matches_plain(rec3, counts, nty):
+def _blend_matches_plain(rec3, counts, nty, row0=0):
     before = native.LAUNCHES["blend_tiles"]
-    got = cuda_backend.blend_tiles(rec3, counts, nty)
-    ref = cuda_backend.blend_tiles_plain(rec3, counts, nty)
+    got = cuda_backend.blend_tiles(rec3, counts, nty, row0)
+    ref = cuda_backend.blend_tiles_plain(rec3, counts, nty, row0)
     torch.cuda.synchronize()
     assert native.LAUNCHES["blend_tiles"] == before + 1
     assert float((got[:, :12] - ref[:, :12]).abs().max()) <= 1e-5
     assert float((got[:, 12] != ref[:, 12]).float().mean()) <= 1e-4
     return ref
+
+
+@pytest.mark.parametrize("room", ["room", "overflow"])
+def test_blend_kernels_at_a_row_offset(cuda, room):
+    """K2 and K3 on the strip of tile rows 4 .. 7 of the small scene (rows 6
+    and 7 below the image), placed at row0 = 4: against their plain
+    versions, and unlike the same lists placed at row 0."""
+    rec3, counts, nty = _lists(cuda, tile_row0=4, nty=4)
+    assert int(counts.sum()) > 0
+    ref = _blend_matches_plain(rec3, counts, nty, row0=4)
+    assert not torch.equal(ref, cuda_backend.blend_tiles(rec3, counts, nty, 0))
+    _backward_matches_plain(rec3, counts, nty, room, row0=4)
+    with pytest.raises(ValueError):
+        cuda_backend.blend_tiles(rec3, counts, nty, -4)
 
 
 def test_blend_kernel_matches_plain(cuda):
@@ -345,13 +360,13 @@ def test_render_kernels_match_plain(cuda):
     assert torch.equal(out["radii"], ref["radii"])
 
 
-def _backward_matches_plain(rec3, counts, nty, room):
+def _backward_matches_plain(rec3, counts, nty, room, row0=0):
     """Packed rows within 1e-3 of each row's largest value (the sum over a
     tile's pixels runs in another order), the slot column and the dropped
     groups exactly, two launches bit-equal, the scattered gradient within
     1e-4 of its largest."""
     dev = rec3.device
-    out = cuda_backend.blend_tiles(rec3, counts, nty)
+    out = cuda_backend.blend_tiles(rec3, counts, nty, row0)
     gen = torch.Generator(device=dev).manual_seed(0)
     dout = torch.randn(out.shape, device=dev, generator=gen)
     grp = min(cuda_backend.GROUP, rec3.shape[2])
@@ -361,9 +376,10 @@ def _backward_matches_plain(rec3, counts, nty, room):
     pack_cap = demand + grp if room == "room" else max(grp, (demand // 2) // grp * grp)
     assert (pack_cap < demand) == (room == "overflow")
     before = native.LAUNCHES["blend_tiles_backward"]
-    got = cuda_backend.blend_tiles_backward(rec3, counts, off, out, dout, nty, pack_cap)
-    again = cuda_backend.blend_tiles_backward(rec3, counts, off, out, dout, nty, pack_cap)
-    ref = cuda_backend.blend_tiles_backward_plain(rec3, counts, off, out, dout, nty, pack_cap)
+    args = (rec3, counts, off, out, dout, nty, pack_cap, row0)
+    got = cuda_backend.blend_tiles_backward(*args)
+    again = cuda_backend.blend_tiles_backward(*args)
+    ref = cuda_backend.blend_tiles_backward_plain(*args)
     torch.cuda.synchronize()
     assert native.LAUNCHES["blend_tiles_backward"] == before + 2
     n = min(demand, pack_cap)

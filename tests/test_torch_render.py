@@ -180,9 +180,11 @@ def test_median_depth_ratio_and_unported_paths():
             *map(to_torch, arrays), to_torch(bg))
     out = tapi.render(*args, device="cpu")
     assert torch.equal(out["surf_depth"], out["depth_median"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="next multi-device slice"):
         tapi.render(*args, device="cpu", shard_splats=True)
-    with pytest.raises(NotImplementedError):
+    # mesh= renders tile rows (tests/test_torch_sharded.py); it must be a
+    # parallel.distributed.Mesh
+    with pytest.raises(TypeError):
         tapi.render(*args, device="cpu", mesh=object())
     # the tiled backend is ported: it renders (held against JAX in
     # tests/test_torch_tiled.py)

@@ -472,7 +472,14 @@ def test_trainer_profile_window_writes_a_trace(trainers, tmp_path):
 
 
 def test_trainer_refuses_unported_modes(trainers):
+    """Splat sharding and the viewer are not ported; a mesh must be the
+    port's (tile-row training is held to one device in
+    tests/test_torch_sharded.py)."""
     _, tt, _, _ = trainers
-    for kw in (dict(mesh=object()), dict(shard_splats=True), dict(gui=object())):
+    for kw in (dict(shard_splats=True), dict(gui=object())):
         with pytest.raises(NotImplementedError):
             tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, **kw)
+    with pytest.raises(NotImplementedError, match="next multi-device slice"):
+        tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, shard_splats=True)
+    with pytest.raises(TypeError):
+        tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, mesh=object())

@@ -6,10 +6,18 @@
 Runs on the GPU. `main(argv, device="cpu")` from Python runs the kernels'
 plain versions on the CPU, as the tests do; there is no flag for it.
 
-Not ported yet, and said so rather than passed over: `--n_devices` other
-than 1 and `--shard_mode splats` raise NotImplementedError (the
-multi-device slice); the training viewer is absent, so without
-`--disable_viewer` the run prints that and goes on without one.
+`--n_devices N` (N > 1; 0 = every GPU) splits each view's tile rows over N
+ranks, one process per GPU (`--shard_mode rows`, parallel/sharded.py): the
+run spawns ranks on cuda:0 .. cuda:N-1, and raises when the host has fewer
+GPUs. Started by a launcher that set WORLD_SIZE, RANK, MASTER_ADDR and
+MASTER_PORT (torchrun), it joins that group instead, one rank per process.
+From Python with device="cpu" it runs N gloo ranks on the CPU. Rank 0
+alone logs and writes the model directory.
+
+Not ported yet, and said so rather than passed over: `--shard_mode splats`
+raises NotImplementedError (the next multi-device slice); the training
+viewer is absent, so without `--disable_viewer` the run prints that and
+goes on without one.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 
 from tpu2dgs_torch import default_device
 from tpu2dgs_torch.cli import config as cfg_lib
+from tpu2dgs_torch.parallel import distributed
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,20 +66,42 @@ def build_parser() -> argparse.ArgumentParser:
         "on a side stream (default: pre-stage everything)")
     parser.add_argument(
         "--n_devices", type=int, default=1,
-        help="devices to shard rendering over; only 1 is ported")
+        help="devices (ranks) to split each view's tile rows over; 0 = every GPU")
     parser.add_argument(
         "--profile_dir", type=str, default="",
         help="capture a torch.profiler trace of training steps 100-110 into "
         "this directory (a Chrome trace)")
     parser.add_argument(
         "--shard_mode", choices=("rows", "splats"), default="rows",
-        help="multi-device mode; only 'rows' on one device is ported")
+        help="multi-device mode; only 'rows' (tile rows) is ported")
     return parser
+
+
+def _ranks(n_devices: int, dev: torch.device) -> tuple[int, bool]:
+    """(ranks, joined): the number of ranks the run splits tile rows over,
+    and whether this process joins a group a launcher set up rather than
+    spawning its own."""
+    if n_devices < 0:
+        raise ValueError(f"--n_devices {n_devices}: give 0 (every GPU) or a count")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        distributed.initialize()
+        world = torch.distributed.get_world_size()
+        if n_devices not in (0, 1, world):  # 1, the default, defers to the launcher
+            raise ValueError(f"--n_devices {n_devices} in a launched group of {world} ranks")
+        return world, True
+    if n_devices == 0:
+        if dev.type != "cuda":
+            raise ValueError("--n_devices 0 counts GPUs; on the CPU give the number of ranks")
+        n_devices = torch.cuda.device_count()
+    if n_devices > 1:
+        distributed.rank_devices(n_devices, dev.type)  # raises with fewer GPUs than ranks
+    return n_devices, False
 
 
 def main(argv=None, device=None):
     """Parse `argv` (default: the command line) and train. Returns the
-    Trainer, for a caller from Python."""
+    Trainer, for a caller from Python; None from a run whose ranks it
+    spawned (each rank held its own)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     model_p = cfg_lib.extract(cfg_lib.ModelParams, args)
@@ -78,24 +109,40 @@ def main(argv=None, device=None):
     pipe_p = cfg_lib.extract(cfg_lib.PipelineParams, args)
     raster_p = cfg_lib.extract(cfg_lib.RasterParams, args)
     raster_p.backend = cfg_lib.port_backend(raster_p.backend)
-    if args.n_devices != 1 or args.shard_mode == "splats":
+    if args.shard_mode == "splats":
         raise NotImplementedError(
-            f"--n_devices {args.n_devices} --shard_mode {args.shard_mode}: multi-device "
-            "training is not ported yet (it comes with the multi-device slice); "
-            "run with --n_devices 1 --shard_mode rows")
+            "--shard_mode splats: splat sharding is not ported yet (it comes with the next "
+            "multi-device slice); run with --shard_mode rows")
     dev = default_device(device)
+    n_ranks, joined = _ranks(args.n_devices, dev)
+    if n_ranks > 1 and raster_p.backend == "oracle":
+        raise ValueError("--backend oracle has no sharded form: train it with --n_devices 1")
 
     if not model_p.model_path:
         model_p.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
         args.model_path = model_p.model_path
-    os.makedirs(model_p.model_path, exist_ok=True)
-    cfg_lib.save_cfg_args(model_p.model_path, args)
-    print(f"Output folder: {model_p.model_path}")
+    if distributed.is_primary():
+        os.makedirs(model_p.model_path, exist_ok=True)
+        cfg_lib.save_cfg_args(model_p.model_path, args)
+        print(f"Output folder: {model_p.model_path}")
+        if n_ranks > 1:
+            print(f"Sharding tile rows over {n_ranks} ranks")
 
-    return run_training(model_p, opt_p, pipe_p, raster_p, args, dev)
+    if n_ranks > 1 and not joined:
+        distributed.spawn(_train_rank, n_ranks, args=(model_p, opt_p, pipe_p, raster_p, args),
+                          device=dev.type, timeout_s=None)
+        return None
+    mesh = distributed.make_mesh(n_ranks) if joined else None
+    return run_training(model_p, opt_p, pipe_p, raster_p, args,
+                        mesh.device if mesh is not None else dev, mesh)
 
 
-def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
+def _train_rank(mesh, model_p, opt_p, pipe_p, raster_p, args) -> None:
+    """One spawned rank of `main`."""
+    run_training(model_p, opt_p, pipe_p, raster_p, args, mesh.device, mesh)
+
+
+def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
     from tpu2dgs_torch.data.scene import Scene
     from tpu2dgs_torch.model import optim as optim_lib
     from tpu2dgs_torch.model import splats as splats_lib
@@ -111,15 +158,17 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
         eval_split=model_p.eval, seed=args.seed,
         num_init_points=args.num_init_points,
     )
+    primary = distributed.is_primary()
     # Fresh training only: persist input.ply + cameras.json into the model
     # dir (a resume must not clobber the original run's files with this
     # invocation's re-shuffled camera ordering).
-    if not args.start_checkpoint:
+    if not args.start_checkpoint and primary:
         scene.save_model_info(model_p.model_path)
     cam0 = scene.train_cameras[0]
     w, h = cam0.width, cam0.height
-    print(f"{len(scene.train_cameras)} train / {len(scene.test_cameras)} test "
-          f"cameras at {w}x{h}; extent {scene.extent:.2f}")
+    if primary:
+        print(f"{len(scene.train_cameras)} train / {len(scene.test_cameras)} test "
+              f"cameras at {w}x{h}; extent {scene.extent:.2f}")
 
     train_cfg = TrainConfig(
         iterations=opt_p.iterations,
@@ -145,8 +194,8 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
         scaling_lr=opt_p.scaling_lr,
         rotation_lr=opt_p.rotation_lr,
     )
-    # Every knob a backend on one device reads; the multi-device knobs of
-    # RasterParams parse and are not passed on.
+    # Every knob a backend reads; xfer_capacity (splat sharding) parses and
+    # is not passed on.
     raster_kwargs = dict(
         backend=raster_p.backend, tile_px=raster_p.tile_px,
         coarse_tiles=raster_p.coarse_tiles,
@@ -156,6 +205,7 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
         vis_capacity=raster_p.vis_capacity,
         grad_pack_capacity=raster_p.grad_pack_capacity,
         chunk=raster_p.chunk,
+        row_balance=raster_p.row_balance,
         depth_ratio=pipe_p.depth_ratio,
     )
 
@@ -163,13 +213,15 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
     if args.start_checkpoint:
         model, adam, start_step, _ = ckpt_lib.load_checkpoint(args.start_checkpoint,
                                                               device=device)
-        print(f"Resumed from {args.start_checkpoint} at step {start_step}")
+        if primary:
+            print(f"Resumed from {args.start_checkpoint} at step {start_step}")
     else:
         model = splats_lib.create_from_pcd(
             scene.points, scene.colors, sh_degree=model_p.sh_degree, device=device)
         adam = None
 
-    logger = TrainLogger(model_p.model_path)
+    # Rank 0 alone logs and writes; the others train alike beside it.
+    logger = TrainLogger(model_p.model_path) if primary else None
 
     def log_fn(it, metrics):
         if it % 10 == 0:
@@ -189,11 +241,11 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
         train_cfg=train_cfg, opt_cfg=opt_cfg, raster_kwargs=raster_kwargs,
         white_background=model_p.white_background,
         max_sh_degree=model_p.sh_degree, seed=args.seed,
-        log_fn=log_fn, max_capacity=args.max_capacity,
-        profile_dir=args.profile_dir or None,
+        log_fn=log_fn if primary else None, max_capacity=args.max_capacity,
+        mesh=mesh, profile_dir=args.profile_dir or None,
         gt_cache_mb=args.gt_cache_mb,
     )
-    if not args.disable_viewer:
+    if not args.disable_viewer and primary:
         print("viewer server unavailable (the training viewer is not ported yet); "
               "continuing without")
 
@@ -210,7 +262,8 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
 
     # --detect_anomaly holds for this run only: the mode is put back after it.
     with contextlib.ExitStack() as stack:
-        stack.callback(logger.close)
+        if logger is not None:
+            stack.callback(logger.close)
         if args.detect_anomaly:
             stack.enter_context(torch.autograd.set_detect_anomaly(True))
         while trainer.step < opt_p.iterations:
@@ -220,8 +273,10 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
                           if trainer.step < i <= trainer.step + n]
             if boundaries:
                 n = min(boundaries) - trainer.step
-            trainer.train(num_iters=n, progress=not args.quiet)
+            trainer.train(num_iters=n, progress=not args.quiet and primary)
             it = trainer.step
+            if not primary:
+                continue
 
             if it in test_set:
                 _test_report(trainer, scene, logger, losses, it, min(test_set))
@@ -236,7 +291,8 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device):
                     trainer.model, trainer.adam, it)
                 print(f"[ITER {it}] saved checkpoint")
 
-    print("Training complete.")
+    if primary:
+        print("Training complete.")
     return trainer
 
 

@@ -92,7 +92,7 @@ __global__ void __cluster_dims__(kSubs, 1, 1) __launch_bounds__(kThreads, 4)
 blend_backward_kernel(const float* __restrict__ rec3, const int* __restrict__ counts,
                       const int* __restrict__ offs, const float* __restrict__ out,
                       const float* __restrict__ dout, float* __restrict__ dpack,
-                      int nch, int capk, int nty, int group, int pack_cap) {
+                      int nch, int capk, int nty, int row0, int group, int pack_cap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
@@ -105,7 +105,9 @@ blend_backward_kernel(const float* __restrict__ rec3, const int* __restrict__ co
   const int lx = pixel_col(tid);
   const int ly0 = pixel_row0(tid);
   const float x0 = (float)((t / nty) * kBX + sub * kSubW);
-  const float y0 = (float)((t % nty) * kBY);
+  // Tile row t % nty of a strip that starts at tile row row0 of the image:
+  // the pixel rows and the cull's rectangles both follow from y0.
+  const float y0 = (float)(((t % nty) + row0) * kBY);
   const float px = x0 + (float)lx;
 
   const float* o = out + (size_t)t * kOutCh * kPlane;
@@ -348,15 +350,17 @@ blend_backward_kernel(const float* __restrict__ rec3, const int* __restrict__ co
 
 // rec3 (tiles, nch, capk) f32 channel-major record lists, nch >= 24 (the
 // cull reads te2 and fr2, channels 22 and 23); counts, offs (tiles,) i32;
-// out, dout (tiles, 16, 16, 128) f32; dpack (pack_cap, 20) f32.
+// out, dout (tiles, 16, 16, 128) f32; dpack (pack_cap, 20) f32. The tiles
+// are a strip of nty tile rows whose first is tile row row0 >= 0 of the
+// image (0: the whole image).
 // group = min(256, capk) divides capk, is a multiple of 64, and divides
 // every offset and pack_cap.
 extern "C" int blend_backward_launch(const float* rec3, const int* counts, const int* offs,
                                      const float* out, const float* dout, float* dpack,
-                                     int tiles, int nch, int capk, int nty, int group,
-                                     int pack_cap, int device, void* stream) {
-  if (nch < kStage || nty <= 0 || group <= 0 || group % kChunk != 0 || capk % group != 0 ||
-      pack_cap % group != 0)
+                                     int tiles, int nch, int capk, int nty, int row0,
+                                     int group, int pack_cap, int device, void* stream) {
+  if (nch < kStage || nty <= 0 || row0 < 0 || group <= 0 || group % kChunk != 0 ||
+      capk % group != 0 || pack_cap % group != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -365,7 +369,7 @@ extern "C" int blend_backward_launch(const float* rec3, const int* counts, const
   if (err != cudaSuccess) return (int)err;
   if (tiles > 0) {
     blend_backward_kernel<<<tiles * kSubs, kThreads, sizeof(Smem), (cudaStream_t)stream>>>(
-        rec3, counts, offs, out, dout, dpack, nch, capk, nty, group, pack_cap);
+        rec3, counts, offs, out, dout, dpack, nch, capk, nty, row0, group, pack_cap);
   }
   return (int)cudaGetLastError();
 }

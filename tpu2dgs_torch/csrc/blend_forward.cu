@@ -44,7 +44,7 @@ struct Pixel {
 // At most 85 registers a thread: six CTAs share an SM.
 __global__ void __launch_bounds__(kThreads, 6)
 blend_forward_kernel(const float* __restrict__ rec3, const int* __restrict__ counts,
-                     float* __restrict__ out, int nch, int capk, int nty) {
+                     float* __restrict__ out, int nch, int capk, int nty, int row0) {
   __shared__ Chunk stage[2];
 
   const int t = blockIdx.x / kSubs;
@@ -53,7 +53,9 @@ blend_forward_kernel(const float* __restrict__ rec3, const int* __restrict__ cou
   const int lx = pixel_col(tid);
   const int ly0 = pixel_row0(tid);
   const float x0 = (float)((t / nty) * kBX + sub * kSubW);
-  const float y0 = (float)((t % nty) * kBY);
+  // Tile row t % nty of a strip that starts at tile row row0 of the image:
+  // the pixel rows and the cull's rectangles both follow from y0.
+  const float y0 = (float)(((t % nty) + row0) * kBY);
   const float px = x0 + (float)lx;
   float py[kPix];
   Pixel s[kPix];
@@ -138,16 +140,17 @@ blend_forward_kernel(const float* __restrict__ rec3, const int* __restrict__ cou
 
 // rec3 (tiles, nch, capk) f32 channel-major record lists, nch >= 24 (the
 // cull reads te2 and fr2, channels 22 and 23); counts (tiles,) i32;
-// out (tiles, 16, 16, 128) f32.
+// out (tiles, 16, 16, 128) f32. The tiles are a strip of nty tile rows
+// whose first is tile row row0 >= 0 of the image (0: the whole image).
 extern "C" int blend_forward_launch(const float* rec3, const int* counts, float* out,
-                                    int tiles, int nch, int capk, int nty, int device,
-                                    void* stream) {
-  if (nch < kStage || nty <= 0) return (int)cudaErrorInvalidValue;
+                                    int tiles, int nch, int capk, int nty, int row0,
+                                    int device, void* stream) {
+  if (nch < kStage || nty <= 0 || row0 < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (tiles > 0) {
     blend_forward_kernel<<<tiles * kSubs, kThreads, 0, (cudaStream_t)stream>>>(
-        rec3, counts, out, nch, capk, nty);
+        rec3, counts, out, nch, capk, nty, row0);
   }
   return (int)cudaGetLastError();
 }

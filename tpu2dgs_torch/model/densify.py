@@ -83,7 +83,8 @@ def densify_and_prune(
     `generator` unless it is handed in (so that a test can give two
     implementations the same numbers)."""
     if segments != 1:
-        raise NotImplementedError("segmented densification comes with the multi-device slice")
+        raise NotImplementedError("segmented densification comes with splat sharding, the next "
+                                  "multi-device slice")
     p = SplatParams(*(a.detach() for a in model.params))
     c = model.capacity
     live = model.live

@@ -145,7 +145,8 @@ def grow_capacity(model: SplatModel, new_capacity: int, segments: int = 1) -> Sp
     """A new model with every per-splat tensor padded to `new_capacity`:
     dead rows with identity rotations at the end."""
     if segments != 1:
-        raise NotImplementedError("segmented capacity comes with the multi-device slice")
+        raise NotImplementedError("segmented capacity comes with splat sharding, the next "
+                                  "multi-device slice")
     c = model.capacity
     if new_capacity < c:
         raise ValueError(f"cannot shrink capacity {c} to {new_capacity}")

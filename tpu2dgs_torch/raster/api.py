@@ -18,8 +18,12 @@ Backends, all held against the oracle:
   "tiled"   square-tile binning and a batched blend (raster/tiled.py),
             plain PyTorch under autograd.
 
-`mesh=` and `shard_splats=` (multi-device rendering) raise
-NotImplementedError until the multi-device slice.
+With `mesh=` (a parallel.distributed.Mesh, one process per device) the
+cuda and tiled backends split the image's tile rows over the mesh's ranks
+(parallel/sharded.py): every rank returns the whole dict, and gradients
+are the single-device ones. The oracle has no sharded form. Splat sharding
+(`shard_splats=True`) raises NotImplementedError: it is the next
+multi-device slice.
 
 `render` is differentiable with respect to xyz, scaling, rotation,
 opacity, features and `mean2d_offset`, whichever of them require grad. A
@@ -38,6 +42,8 @@ from tpu2dgs_torch import default_device
 from tpu2dgs_torch.core import sh as sh_lib
 from tpu2dgs_torch.core import transforms
 from tpu2dgs_torch.core.cameras import CameraArrays, depth_to_normal
+from tpu2dgs_torch.parallel.distributed import Mesh
+from tpu2dgs_torch.parallel.sharded import rasterize_sharded
 from tpu2dgs_torch.raster import preprocess as pre
 from tpu2dgs_torch.raster.cuda_backend import rasterize_cuda
 from tpu2dgs_torch.raster.oracle import rasterize_oracle
@@ -69,8 +75,16 @@ class RasterSettings:
     tile_px: int = 16            # fine tile edge in pixels
     coarse_tiles: int = 4        # fine tiles per coarse bin edge
     chunk: int = 32              # splats composited per step (tiled, oracle)
+    row_balance: str = "work"    # multi-device tile-row assignment (cuda):
+                                 # "work" = contiguous per-device windows at
+                                 # work-quantile boundaries; "static" =
+                                 # equal-height strips
 
     def __post_init__(self):
+        if self.row_balance not in ("work", "static"):
+            # A typo here would silently fall back to static strips and
+            # lose the load balance the flag exists for.
+            raise ValueError(f"row_balance must be 'work' or 'static', got {self.row_balance!r}")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown raster backend {self.backend!r}")
 
@@ -104,9 +118,22 @@ def render(
     `axes_override`, as the reference PipelineParams do. `plain=True`
     runs the kernels' plain PyTorch versions, forward and backward, on
     any device: what the kernels are held against. The oracle and tiled
-    backends have no kernel and ignore it."""
-    if mesh is not None or shard_splats:
-        raise NotImplementedError("multi-device rendering is not ported yet")
+    backends have no kernel and ignore it.
+
+    With `mesh`, every rank of the mesh calls render alike (the same inputs,
+    and a backward on each if on one), on the mesh's device."""
+    if shard_splats:
+        raise NotImplementedError(
+            "splat sharding (shard_splats=True) is not ported yet: it comes with the next "
+            "multi-device slice, after tile-row sharding (mesh=)")
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.distributed.Mesh, not {type(mesh)!r}")
+        if settings.backend == "oracle":
+            raise ValueError("the oracle backend has no sharded form: render it without mesh=")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
     dev = default_device(device)
 
     def on(x):
@@ -134,7 +161,9 @@ def render(
         mean2d_offset=mean2d_offset, scale_modifier=settings.scale_modifier,
         live=live, override_color=override_color, axes_override=axes_override)
 
-    if settings.backend == "oracle":
+    if mesh is not None:
+        image, allmap = rasterize_sharded(splats, settings, bg_color, mesh, plain=plain)
+    elif settings.backend == "oracle":
         image, allmap = rasterize_oracle(splats, w, h, bg_color, chunk=settings.chunk)
     elif settings.backend == "tiled":
         image, allmap = rasterize_tiled(splats, settings, bg_color)

@@ -25,6 +25,13 @@ The pipeline of the JAX backend, kept contract for contract:
     backend's custom_vjp `blend_tiles`): the packed rows are scattered
     onto the rows of the differentiable record array `rec_c`.
   * `blend_binned`: untile into image planes plus the `_aux_*` counters.
+  * Strips and windows (the unit of multi-device work,
+    parallel/sharded.py): `rasterize_cuda(..., tile_row0, nty_local)`
+    bins and blends only the strip of `nty_local` tile rows that starts at
+    tile row `tile_row0` of the image, and `row_lo`/`row_hi` further keep
+    only the tiles of the window [row_lo, row_hi) of image tile rows. Both
+    kernels take the strip's first row (`row0`) and place each tile in the
+    image with it.
 
 Capacities round exactly as the JAX backend rounds them (`_round128`,
 `_round_group` with GROUP = 256), so per-tile lists, counts, overflow
@@ -139,18 +146,19 @@ def _splat_response(r, px, py):
     return alpha, depthp, hit, G, su, sv, inv, not_clamped, use3d
 
 
-def _tile_planes(t, nty, device):
-    """Pixel-center coordinates (T, BY, BX) of column-major tiles."""
+def _tile_planes(t, nty, device, row0: int = 0, dtype=torch.float32):
+    """Pixel-center coordinates (T, BY, BX) of column-major tiles of a strip
+    of nty tile rows whose first is tile row `row0` of the image."""
     tiles = torch.arange(t, device=device)
-    x0 = ((tiles // nty) * BX).to(torch.float32)[:, None, None]
-    y0 = ((tiles % nty) * BY).to(torch.float32)[:, None, None]
-    px = x0 + torch.arange(BX, device=device, dtype=torch.float32)[None, None, :]
-    py = y0 + torch.arange(BY, device=device, dtype=torch.float32)[None, :, None]
+    x0 = ((tiles // nty) * BX).to(dtype)[:, None, None]
+    y0 = ((tiles % nty + row0) * BY).to(dtype)[:, None, None]
+    px = x0 + torch.arange(BX, device=device, dtype=dtype)[None, None, :]
+    py = y0 + torch.arange(BY, device=device, dtype=dtype)[None, :, None]
     return px.expand(t, BY, BX), py.expand(t, BY, BX)
 
 
 def subtile_coverage(rec3: torch.Tensor, counts: torch.Tensor, nty: int,
-                     rows: int = BY) -> torch.Tensor:
+                     rows: int = BY, row0: int = 0) -> torch.Tensor:
     """The blend kernels' cull, plain: (T, BX // SUB * (BY // rows), capk)
     bool, by default (T, 8, capk).
 
@@ -159,7 +167,8 @@ def subtile_coverage(rec3: torch.Tensor, counts: torch.Tensor, nty: int,
     with rows = BY the 8 sub-tiles of 16x16 pixels, with rows = 4 the 16x4
     blocks of the kernels' warps. Entry j reaches it when j < counts[t] and
     the exact coverage test passes on the block's inclusive rectangle, as
-    binning's L3 tests whole tiles. The kernels walk only such pairs; a pair
+    binning's L3 tests whole tiles; a strip's tiles start at image tile row
+    `row0`. The kernels walk only such pairs; a pair
     whose bit is clear must miss every pixel of the block. For tests and the
     smoke run only: the kernels compute it themselves
     (csrc/blend_common.cuh)."""
@@ -169,7 +178,7 @@ def subtile_coverage(rec3: torch.Tensor, counts: torch.Tensor, nty: int,
     blocks = torch.arange(BX // SUB * (BY // rows), device=dev)
     r, q = blocks // (BY // rows), blocks % (BY // rows)
     x0 = ((tiles // nty) * BX)[:, None, None] + (SUB * r)[None, :, None]
-    y0 = ((tiles % nty) * BY)[:, None, None] + (rows * q)[None, :, None]
+    y0 = ((tiles % nty + row0) * BY)[:, None, None] + (rows * q)[None, :, None]
     x0, y0 = x0.to(torch.float32), y0.to(torch.float32)
     hit = select_kernel._exact_coverage(lambda c: rec3[:, c, None, :], _EXACT_IDX,
                                         x0, x0 + (SUB - 1), y0, y0 + (rows - 1))
@@ -177,18 +186,22 @@ def subtile_coverage(rec3: torch.Tensor, counts: torch.Tensor, nty: int,
     return hit & live[:, None, :]
 
 
-def blend_tiles_plain(rec3: torch.Tensor, counts: torch.Tensor, nty: int) -> torch.Tensor:
+def blend_tiles_plain(rec3: torch.Tensor, counts: torch.Tensor, nty: int,
+                      row0: int = 0) -> torch.Tensor:
     """Plain PyTorch forward blend: all tiles walk their lists in lockstep.
 
     rec3 (T, NCH, capk) f32 channel-major record lists, counts (T,) live
-    entries per tile -> (T, OUT_CH, BY, BX), the kernel's math and layout."""
+    entries per tile -> (T, OUT_CH, BY, BX), the kernel's math and layout.
+    The tiles are a strip of nty tile rows from image tile row `row0`. It
+    computes in rec3's float type (float64 for a witness of the float32
+    arithmetic)."""
     t, _, capk = rec3.shape
-    dev = rec3.device
-    px, py = _tile_planes(t, nty, dev)
+    dev, dt = rec3.device, rec3.dtype
+    px, py = _tile_planes(t, nty, dev, row0, dt)
     counts = torch.clamp(counts.to(torch.int64), max=capk)
 
     def f(v):
-        return torch.full((t, BY, BX), v, dtype=torch.float32, device=dev)
+        return torch.full((t, BY, BX), v, dtype=dt, device=dev)
 
     T, alive = f(1.0), torch.ones((t, BY, BX), dtype=torch.bool, device=dev)
     rgb = [f(0.0) for _ in range(3)]
@@ -222,17 +235,26 @@ def blend_tiles_plain(rec3: torch.Tensor, counts: torch.Tensor, nty: int) -> tor
         [*rgb, T, dep, *nrm, med, dist, m1, m2, last, zeros, zeros, zeros], dim=1)
 
 
-_BLEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BLEND_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def blend_tiles(rec3: torch.Tensor, counts: torch.Tensor, nty: int) -> torch.Tensor:
-    """Forward blend of per-tile record lists -> (T, OUT_CH, BY, BX).
+def _check_row0(row0) -> int:
+    if isinstance(row0, bool) or not isinstance(row0, int) or row0 < 0:
+        raise ValueError(f"row0 must be a tile row >= 0 of the image, not {row0!r}")
+    return row0
+
+
+def blend_tiles(rec3: torch.Tensor, counts: torch.Tensor, nty: int,
+                row0: int = 0) -> torch.Tensor:
+    """Forward blend of per-tile record lists -> (T, OUT_CH, BY, BX), the
+    tiles a strip of nty tile rows from image tile row `row0`.
 
     A CPU tensor runs `blend_tiles_plain`; a CUDA tensor launches the
     kernel (csrc/blend_forward.cu) or raises."""
     dev = rec3.device
+    row0 = _check_row0(row0)
     if dev.type == "cpu":
-        return blend_tiles_plain(rec3, counts, nty)
+        return blend_tiles_plain(rec3, counts, nty, row0)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles runs on cpu or cuda, not {dev}")
     if rec3.dtype != torch.float32 or rec3.dim() != 3 or not rec3.is_contiguous():
@@ -247,7 +269,7 @@ def blend_tiles(rec3: torch.Tensor, counts: torch.Tensor, nty: int) -> torch.Ten
     out = torch.empty((t, OUT_CH, BY, BX), dtype=torch.float32, device=dev)
     fn = native.function("blend_forward", "blend_forward_launch", _BLEND_ARGTYPES)
     native.launch(fn, rec3.data_ptr(), counts.data_ptr(), out.data_ptr(), t, nch,
-                  capk, nty, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+                  capk, nty, row0, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
                   what="blend_tiles")
     return out
 
@@ -269,7 +291,7 @@ def _packed_offsets(counts, out, group):
 
 
 def blend_tiles_backward_plain(rec3, counts, off, out, dout, nty: int,
-                               pack_cap: int) -> torch.Tensor:
+                               pack_cap: int, row0: int = 0) -> torch.Tensor:
     """Plain PyTorch backward blend: all tiles walk their lists back to
     front in lockstep. Returns the packed rows (pack_cap, OUTREC).
 
@@ -280,11 +302,13 @@ def blend_tiles_backward_plain(rec3, counts, off, out, dout, nty: int,
     dropped whole. Rows no tile reserved are zero here (the kernel leaves
     them unwritten; `BlendTiles` masks them). Channels 0:19 are the
     gradients of record channels 0:19 summed over the tile's pixels;
-    channel 19 is record channel 21, the row of the record array."""
+    channel 19 is record channel 21, the row of the record array. The
+    tiles are a strip of nty tile rows from image tile row `row0`. It
+    computes in rec3's float type."""
     t, _, capk = rec3.shape
-    dev = rec3.device
+    dev, dt = rec3.device, rec3.dtype
     group = min(GROUP, capk)
-    px, py = _tile_planes(t, nty, dev)
+    px, py = _tile_planes(t, nty, dev, row0, dt)
     counts = torch.clamp(counts.to(torch.int64), max=capk)
     off = off.to(torch.int64)
 
@@ -301,11 +325,11 @@ def blend_tiles_backward_plain(rec3, counts, off, out, dout, nty: int,
     n_walk = int(walked_to.max()) if t else 0
     n_rows = int(eff.max()) if t else 0
 
-    zeros = torch.zeros((t, BY, BX), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((t, BY, BX), dtype=dt, device=dev)
     T_cur = t_final.clone()
     acc_w, s_w, s_wm, acc_a, s_wm2 = (zeros.clone() for _ in range(5))
     med_done = torch.zeros((t, BY, BX), dtype=torch.bool, device=dev)
-    rows = torch.zeros((t, n_rows, OUTREC), dtype=torch.float32, device=dev)
+    rows = torch.zeros((t, n_rows, OUTREC), dtype=dt, device=dev)
     dm_scale = DIST_FAR * DIST_NEAR / (DIST_FAR - DIST_NEAR)
 
     for j in range(n_walk - 1, -1, -1):
@@ -367,7 +391,7 @@ def blend_tiles_backward_plain(rec3, counts, off, out, dout, nty: int,
         rows[:, j, :OUTREC - 1] = grad.sum(dim=(2, 3))
         rows[:, j, OUTREC - 1] = torch.where(in_list & (j < walked_to), rec3[:, 21, j], 0.0)
 
-    dpack = torch.zeros((pack_cap + 1, OUTREC), dtype=torch.float32, device=dev)
+    dpack = torch.zeros((pack_cap + 1, OUTREC), dtype=dt, device=dev)
     jj = torch.arange(n_rows, device=dev)[None, :]
     kept = (jj < eff[:, None]) & (off[:, None] + (jj // group + 1) * group <= pack_cap)
     dest = torch.where(kept, off[:, None] + jj, pack_cap)  # pack_cap = the dump row
@@ -375,19 +399,21 @@ def blend_tiles_backward_plain(rec3, counts, off, out, dout, nty: int,
     return dpack[:pack_cap]
 
 
-_BLEND_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BLEND_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def blend_tiles_backward(rec3, counts, off, out, dout, nty: int,
-                         pack_cap: int) -> torch.Tensor:
-    """Packed gradient rows (pack_cap, OUTREC) of the forward blend.
+                         pack_cap: int, row0: int = 0) -> torch.Tensor:
+    """Packed gradient rows (pack_cap, OUTREC) of the forward blend of a
+    strip of nty tile rows from image tile row `row0`.
 
     CPU tensors run `blend_tiles_backward_plain`; CUDA tensors launch the
     kernel (csrc/blend_backward.cu) or raise. The kernel writes only the
     rows that tiles reserved and that fit: the others are uninitialized."""
     dev = rec3.device
+    row0 = _check_row0(row0)
     if dev.type == "cpu":
-        return blend_tiles_backward_plain(rec3, counts, off, out, dout, nty, pack_cap)
+        return blend_tiles_backward_plain(rec3, counts, off, out, dout, nty, pack_cap, row0)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles_backward runs on cpu or cuda, not {dev}")
     if rec3.dtype != torch.float32 or rec3.dim() != 3 or not rec3.is_contiguous():
@@ -408,8 +434,8 @@ def blend_tiles_backward(rec3, counts, off, out, dout, nty: int,
     dpack = torch.empty((pack_cap, OUTREC), dtype=torch.float32, device=dev)
     fn = native.function("blend_backward", "blend_backward_launch", _BLEND_BWD_ARGTYPES)
     native.launch(fn, rec3.data_ptr(), counts.data_ptr(), off.data_ptr(), out.data_ptr(),
-                  dout.data_ptr(), dpack.data_ptr(), t, nch, capk, nty, group, pack_cap,
-                  dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+                  dout.data_ptr(), dpack.data_ptr(), t, nch, capk, nty, row0, group,
+                  pack_cap, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
                   what="blend_tiles_backward")
     return dpack
 
@@ -449,34 +475,44 @@ def scatter_packed(dpack, eff, num_records: int) -> torch.Tensor:
 
 
 class BlendTiles(torch.autograd.Function):
-    """Blend pre-binned record lists; the backward routes gradients to the
-    rows of `rec_c` (N, REC), the differentiable records whose data the
-    forward never reads: rec3 holds copies of them, each with its row of
-    rec_c in channel 21."""
+    """Blend pre-binned record lists of a strip from image tile row `row0`;
+    the backward routes gradients to the rows of `rec_c` (N, REC), the
+    differentiable records whose data the forward never reads: rec3 holds
+    copies of them, each with its row of rec_c in channel 21."""
 
     @staticmethod
-    def forward(ctx, rec_c, rec3, counts, nty, pack_cap, plain):
-        out = (blend_tiles_plain if plain else blend_tiles)(rec3, counts, nty)
+    def forward(ctx, rec_c, rec3, counts, nty, row0, pack_cap, plain):
+        out = (blend_tiles_plain if plain else blend_tiles)(rec3, counts, nty, row0)
         ctx.save_for_backward(rec3, counts, out)
-        ctx.args = (rec_c.shape[0], nty, pack_cap, plain)
+        ctx.args = (rec_c.shape[0], nty, row0, pack_cap, plain)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         rec3, counts, out = ctx.saved_tensors
-        num_records, nty, pack_cap, plain = ctx.args
+        num_records, nty, row0, pack_cap, plain = ctx.args
         group = min(GROUP, rec3.shape[2])
         eff = _effective_counts(counts, out, group)
         off = (torch.cumsum(eff, dim=0) - eff).to(torch.int32)
         backward = blend_tiles_backward_plain if plain else blend_tiles_backward
-        dpack = backward(rec3, counts, off, out, dout.contiguous(), nty, pack_cap)
-        return scatter_packed(dpack, eff, num_records), None, None, None, None, None
+        dpack = backward(rec3, counts, off, out, dout.contiguous(), nty, pack_cap, row0)
+        return scatter_packed(dpack, eff, num_records), None, None, None, None, None, None
 
 
 def rasterize_cuda(splats: SplatScreen, settings, bg_color: torch.Tensor,
-                   plain: bool = False):
-    """(image (H,W,3), allmap) of the preprocessed splats: the counterpart
-    of rasterize_pallas on one device (the full image, tile_row0 = 0).
+                   plain: bool = False, tile_row0: int = 0, nty_local: int | None = None,
+                   row_lo: int | None = None, row_hi: int | None = None):
+    """(image, allmap) of the preprocessed splats: the counterpart of
+    rasterize_pallas.
+
+    With neither `nty_local` nor a window, the full image (H, W, 3). With
+    (tile_row0, nty_local), only the strip of nty_local tile rows from
+    image tile row tile_row0 (a multiple of CBY, so the strip's coarse bins
+    are those of the image's grid) is binned and blended, and returned
+    uncropped: (nty_local * BY, nbx * BX). With (row_lo, row_hi) as well,
+    global tile-row bounds with row_hi exclusive, only the tiles of that
+    window get lists: the others are background. All are Python ints: they
+    fix the shapes.
 
     `plain=True` runs the kernels' plain PyTorch versions on any device
     (as the JAX backend's interpret=True runs its kernels' semantics),
@@ -484,7 +520,13 @@ def rasterize_cuda(splats: SplatScreen, settings, bg_color: torch.Tensor,
     w, h = settings.width, settings.height
     n = splats.tmat.shape[0]
     nbx = -(-w // BX)
-    nty = -(-h // BY)
+    full = nty_local is None
+    nty = -(-h // BY) if full else nty_local
+    if tile_row0 < 0 or tile_row0 % CBY or nty <= 0:
+        raise ValueError(f"a strip starts at a tile row >= 0 that is a multiple of {CBY} and "
+                         f"has rows: tile_row0 {tile_row0}, nty_local {nty}")
+    if (row_lo is None) != (row_hi is None):
+        raise ValueError("a window needs both row_lo and row_hi")
 
     cap = min(settings.tile_capacity, max(n, 1))
     bin_cap = max(min(settings.bin_capacity, max(n, 1)), cap)
@@ -502,7 +544,8 @@ def rasterize_cuda(splats: SplatScreen, settings, bg_color: torch.Tensor,
     # the backward scatters straight onto the rows of `rec`.
     rec3, raw_counts, bin_counts, col_counts = _bin_records(
         comp.x0, comp.x1, comp.y0, comp.y1, n_vis, rec.detach(), nbx, nty,
-        bin_cap, cap, col_cap=col_cap, ids=comp.perm, plain=plain)
+        bin_cap, cap, tile_row0, col_cap=col_cap, ids=comp.perm, plain=plain,
+        row_lo=row_lo, row_hi=row_hi)
 
     f32 = torch.float32
     aux = {
@@ -513,17 +556,20 @@ def rasterize_cuda(splats: SplatScreen, settings, bg_color: torch.Tensor,
         "_aux_col_count_max": torch.amax(col_counts).to(f32),
     }
     return blend_binned(rec, rec3, raw_counts, settings, bg_color, nbx, nty, aux,
-                        plain=plain)
+                        plain=plain, tile_row0=tile_row0, full=full)
 
 
-def blend_binned(rec_c, rec3, raw_counts, settings, bg_color, nbx, nty, aux, plain=False):
+def blend_binned(rec_c, rec3, raw_counts, settings, bg_color, nbx, nty, aux, plain=False,
+                 tile_row0: int = 0, full: bool = True):
     """Blend pre-binned, depth-ordered record lists into (image, allmap).
 
     rec_c (N, REC): the differentiable records whose rows the lists' id
     channel indexes, the gradient target. rec3 (T, NCH, capk)
     channel-major per-tile record lists from _bin_records (no gradient
-    flows through them), raw_counts (T,) total overlaps. `aux` = extra
-    _aux_* diagnostics merged into allmap."""
+    flows through them), raw_counts (T,) total overlaps, of a strip of nty
+    tile rows from image tile row `tile_row0`: cropped to (H, W) when
+    `full`, else returned whole. `aux` = extra _aux_* diagnostics merged
+    into allmap."""
     w, h = settings.width, settings.height
     t, _, capk = rec3.shape
     counts = torch.clamp(raw_counts, max=capk).to(torch.int32)
@@ -536,12 +582,13 @@ def blend_binned(rec_c, rec3, raw_counts, settings, bg_color, nbx, nty, aux, pla
     grp = min(GROUP, capk)
     pack_cap = -(-pack_cap // grp) * grp
 
-    out = BlendTiles.apply(rec_c, rec3, counts, nty, pack_cap, plain)
+    out = BlendTiles.apply(rec_c, rec3, counts, nty, tile_row0, pack_cap, plain)
 
     def untile(ch):
         # column-major tile rows: t = tix*nty + tiy
         a = out[:, ch].reshape(nbx, nty, BY, BX)
-        return a.permute(1, 2, 0, 3).reshape(nty * BY, nbx * BX)[:h, :w]
+        a = a.permute(1, 2, 0, 3).reshape(nty * BY, nbx * BX)
+        return a[:h, :w] if full else a
 
     pack_demand = torch.sum(_effective_counts(counts, out.detach(), grp))
 
@@ -601,20 +648,26 @@ def _level_caps(k: int, bin_cap: int, cap: int, col_cap: int):
     return col_cap, bin_capk, _round_group(min(cap, bin_capk))
 
 
-def _l1_args(x0, x1, y0, y1, n_vis, nbx, nty, ids=None) -> dict:
+def _l1_args(x0, x1, y0, y1, n_vis, nbx, nty, ids=None, tile_row0: int = 0,
+             row_lo: int | None = None, row_hi: int | None = None) -> dict:
     """L1's select arguments (all but `cap`): one row per BX-wide screen
-    column over the full image height, AABB test. The record-row id rides
-    as an f32 channel (exact: ids < 2^24)."""
+    column over the strip's pixel rows, or the window's, AABB test. The
+    record-row id rides as an f32 channel (exact: ids < 2^24)."""
     dev = x0.device
     f32 = torch.float32
     if ids is None:
         g0 = torch.arange(x0.shape[0], dtype=f32, device=dev)[None, :]
     else:
         g0 = ids.to(f32)[None, :]
-    y_lo = torch.zeros((nbx,), dtype=f32, device=dev)
+    if row_lo is None:
+        lo, hi = tile_row0 * BY, (tile_row0 + nty) * BY - 1
+    else:
+        lo, hi = row_lo * BY, row_hi * BY - 1
+    y_lo = torch.full((nbx,), float(lo), dtype=f32, device=dev)
+    y_hi = torch.full((nbx,), float(hi), dtype=f32, device=dev)
     cix = torch.arange(nbx, dtype=f32, device=dev)
     return dict(
-        row_rects=(cix * BX, cix * BX + (BX - 1), y_lo, y_lo + (nty * BY - 1)),
+        row_rects=(cix * BX, cix * BX + (BX - 1), y_lo, y_hi),
         cand_channels=(x0[None], x1[None], y0[None], y1[None], g0),
         parent_of_row=torch.zeros((nbx,), dtype=torch.int32, device=dev),
         parent_counts=n_vis.to(torch.int32).expand(nbx))
@@ -636,26 +689,45 @@ def _column_lists(rec_sg, cchan, col_cnt):
     return torch.where(live_col, rec_col, pads)
 
 
-def _l2_args(l2_in, col_cnt, nbx, nty) -> dict:
+# The never-hit rectangle of a bin or tile outside the window (rows past any
+# image), as the JAX backend writes it.
+_OFF_WINDOW = 2e9
+
+
+def _l2_args(l2_in, col_cnt, nbx, nty, tile_row0: int = 0,
+             row_lo: int | None = None, row_hi: int | None = None) -> dict:
     """L2's select arguments (all but `cap`): coarse bins (column-major)
-    from their column's candidates, exact coverage."""
+    from their column's candidates, exact coverage. A strip's bins start at
+    image tile row tile_row0; with a window, a bin wholly outside it gets a
+    never-hit rectangle (a bin across its edge keeps its whole rectangle,
+    and L3's exact test on each tile restores exactness)."""
     dev = l2_in.device
     f32 = torch.float32
     nby_c = -(-nty // CBY)
     bi = torch.arange(nby_c * nbx, dtype=torch.int64, device=dev)
     bix = (bi // nby_c).to(f32)
-    by0 = (bi % nby_c).to(f32) * (BY * CBY)
+    brow0 = tile_row0 + CBY * (bi % nby_c)            # the bin's first image tile row
+    by0 = (brow0 * BY).to(f32)
+    by1 = by0 + (BY * CBY - 1)
+    if row_lo is not None:
+        # global rows against global bounds
+        in_win = (brow0 < row_hi) & (brow0 + CBY > row_lo)
+        by0 = torch.where(in_win, by0, _OFF_WINDOW)
+        by1 = torch.where(in_win, by1, _OFF_WINDOW + (BY * CBY - 1))
     bin_parent = bi // nby_c
     return dict(
-        row_rects=(bix * BX, bix * BX + (BX - 1), by0, by0 + (BY * CBY - 1)),
+        row_rects=(bix * BX, bix * BX + (BX - 1), by0, by1),
         cand_channels=l2_in, parent_of_row=bin_parent,
         parent_counts=torch.clamp(col_cnt, max=l2_in.shape[2])[bin_parent],
         box_idx=None, exact_idx=_EXACT_IDX, pad_vals=_REC_PADS)
 
 
-def _l3_args(bchan, bin_counts, nbx, nty) -> dict:
+def _l3_args(bchan, bin_counts, nbx, nty, tile_row0: int = 0,
+             row_lo: int | None = None, row_hi: int | None = None) -> dict:
     """L3's select arguments (all but `cap`): 16x128 tiles (column-major)
-    from their bin's candidates, exact coverage."""
+    from their bin's candidates, exact coverage. A strip's tiles start at
+    image tile row tile_row0; with a window, a tile outside it gets a
+    never-hit rectangle and so an empty list."""
     dev = bchan.device
     f32 = torch.float32
     nby_c = -(-nty // CBY)
@@ -663,7 +735,11 @@ def _l3_args(bchan, bin_counts, nbx, nty) -> dict:
     tix, tiy = t // nty, t % nty
     bin_of_tile = tix * nby_c + tiy // CBY
     tx0 = (tix * BX).to(f32)
-    ty0 = (tiy * BY).to(f32)
+    ty0 = ((tiy + tile_row0) * BY).to(f32)
+    if row_lo is not None:
+        # global rows against global bounds
+        trow = tiy + tile_row0
+        ty0 = torch.where((trow >= row_lo) & (trow < row_hi), ty0, _OFF_WINDOW)
     return dict(
         row_rects=(tx0, tx0 + (BX - 1), ty0, ty0 + (BY - 1)),
         cand_channels=bchan, parent_of_row=bin_of_tile,
@@ -672,15 +748,23 @@ def _l3_args(bchan, bin_counts, nbx, nty) -> dict:
 
 
 def _bin_records(x0, x1, y0, y1, n_vis, rec_sg, nbx, nty, bin_cap, cap,
-                 tile_row0=0, col_cap=32768, ids=None, plain=False):
+                 tile_row0: int = 0, col_cap=32768, ids=None, plain=False,
+                 row_lo: int | None = None, row_hi: int | None = None):
     """Three-level record-carrying binning: columns -> coarse bins -> tiles.
 
     x0..y1: (K,) screen binning AABBs in depth-ascending order (never-hit
     boxes past n_vis); rec_sg: records indexed by the id channel — rows of
     rec_sg[ids[slot]] (ids (K,) int; None = arange(K), rec_sg in box
-    order). One device renders the full image: tile_row0 must be 0 (the
-    strip and work-window modes of the JAX backend come with the
-    multi-device slice).
+    order). The grid is the strip of nty tile rows from image tile row
+    tile_row0 (a multiple of CBY: its bins are the image grid's).
+
+    `row_lo`/`row_hi` (Python ints, image tile rows, row_hi exclusive)
+    restrict binning to that window: L1's column y-range shrinks to it,
+    bins wholly outside it and tiles outside it get never-hit rectangles
+    (empty lists, counts 0). The bounds are compared with image rows, the
+    strip's local rows plus tile_row0. (The JAX backend compares its local
+    rows with them, which is right only at tile_row0 = 0, the one place it
+    uses a window; `pallas_backend.py:1086-1092,1108-1110`.)
 
     Returns (rec3 (T, NCH, capk) f32 channel-major per-tile record lists,
     counts (T,), bin_counts (NB,), col_counts (nbx,)).
@@ -695,13 +779,13 @@ def _bin_records(x0, x1, y0, y1, n_vis, rec_sg, nbx, nty, bin_cap, cap,
     The levels' arguments come from _l1_args, _column_lists, _l2_args and
     _l3_args, which eval/bin_probe.py times one by one.
     """
-    if tile_row0 != 0:
-        raise NotImplementedError("tile-row strips come with the multi-device slice")
     select = select_kernel.select_values_plain if plain else select_kernel.select_values
     col_cap, bin_capk, capk = _level_caps(x0.shape[0], bin_cap, cap, col_cap)
+    win = dict(tile_row0=tile_row0, row_lo=row_lo, row_hi=row_hi)
 
-    cchan, col_cnt = select(cap=col_cap, **_l1_args(x0, x1, y0, y1, n_vis, nbx, nty, ids))
+    cchan, col_cnt = select(cap=col_cap,
+                            **_l1_args(x0, x1, y0, y1, n_vis, nbx, nty, ids, **win))
     l2_in = _column_lists(rec_sg, cchan, col_cnt)           # (nbx, NCH, col_cap)
-    bchan, bin_counts = select(cap=bin_capk, **_l2_args(l2_in, col_cnt, nbx, nty))
-    rec3, counts = select(cap=capk, **_l3_args(bchan, bin_counts, nbx, nty))
+    bchan, bin_counts = select(cap=bin_capk, **_l2_args(l2_in, col_cnt, nbx, nty, **win))
+    rec3, counts = select(cap=capk, **_l3_args(bchan, bin_counts, nbx, nty, **win))
     return rec3, counts, bin_counts, col_cnt

@@ -21,6 +21,15 @@ densification interval, so the host keeps enqueueing ahead of the device.
 Densification gradients: the gradient with respect to the `mean2d_offset`
 argument of render, converted from pixel units to NDC half-extent units
 (times 0.5 * W, 0.5 * H) so the reference's 2e-4 threshold carries over.
+
+With a `mesh` (parallel/distributed.py) the Trainer runs on every rank of
+it, one process per device, and each renders its tile rows of every view
+(parallel/sharded.py). Every rank keeps the same parameters and Adam state:
+the same seeds and generators, the same camera order, and gradients summed
+over the ranks inside render, so the view-space gradients and radii that
+densification reads, and the overflow counters (the worst strip's) that
+capacity growth reads, are the same on every rank, and every rank clones,
+splits, prunes and grows alike.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from tpu2dgs_torch.core.cameras import Camera
 from tpu2dgs_torch.model import densify as densify_lib
 from tpu2dgs_torch.model import optim as optim_lib
 from tpu2dgs_torch.model import splats as splats_lib
+from tpu2dgs_torch.parallel.distributed import Mesh
 from tpu2dgs_torch.raster.api import RasterSettings, render
 from tpu2dgs_torch.raster.cuda_backend import BX, _round_group
 from tpu2dgs_torch.train import losses
@@ -95,11 +105,12 @@ class TrainConfig:
 
 
 def view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal, lam_dist,
-                   plain: bool = False):
+                   plain: bool = False, mesh=None):
     """The training loss of one view and its gradients: (loss, (radii, l1,
     normal loss, distortion loss, overflow dict), gradients as SplatParams,
     gradient of the screen-space offset (C,2)). `plain=True` goes through
-    the kernels' plain versions."""
+    the kernels' plain versions; with `mesh`, the view's tile rows are
+    split over the mesh's ranks."""
     p = model.params
     offset = torch.zeros((model.capacity, 2), dtype=torch.float32,
                          device=p.xyz.device, requires_grad=True)
@@ -113,6 +124,7 @@ def view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal, lam_d
         bg,
         mean2d_offset=offset,
         live=model.live,
+        mesh=mesh,
         device=p.xyz.device,
         plain=plain,
     )
@@ -131,7 +143,7 @@ def view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal, lam_d
 def train_step(settings: RasterSettings, opt_cfg: optim_lib.OptimConfig,
                lambda_dssim: float, spatial_lr_scale: float,
                model: splats_lib.SplatModel, adam: optim_lib.AdamState,
-               cams, gts, bg, step, lam_normal: float, lam_dist: float):
+               cams, gts, bg, step, lam_normal: float, lam_dist: float, mesh=None):
     """One optimization step on the views `cams` (a list of CameraArrays)
     with ground truths `gts`. Updates `model` and `adam` in place and
     returns (model, adam, metrics); the metrics are tensors on the device.
@@ -139,10 +151,10 @@ def train_step(settings: RasterSettings, opt_cfg: optim_lib.OptimConfig,
     With several views the loss and the gradients are the mean over the
     views, the radii their maximum; the demand maxima among the overflow
     counters (*_max) reduce with the maximum, the fractions with the
-    mean."""
+    mean. With `mesh`, each view's tile rows are split over its ranks."""
     n = len(cams)
     per_view = [view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal,
-                               lam_dist) for cam, gt in zip(cams, gts)]
+                               lam_dist, mesh=mesh) for cam, gt in zip(cams, gts)]
     if n == 1:
         loss, (radii, ll1, ln, ld, overflow), gparams, goffset = per_view[0]
     else:
@@ -217,11 +229,20 @@ class Trainer:
         gui=None,
         gt_cache_mb: Optional[float] = None,
     ):
-        if mesh is not None or shard_splats:
-            raise NotImplementedError("multi-device training is not ported yet")
+        if shard_splats:
+            raise NotImplementedError(
+                "splat sharding (shard_splats=True) is not ported yet: it comes with the next "
+                "multi-device slice, after tile-row sharding (mesh=)")
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.distributed.Mesh, not {type(mesh)!r}")
+            if mesh.device != model.xyz.device:
+                raise ValueError(f"the model is on {model.xyz.device}, the mesh's rank on "
+                                 f"{mesh.device}")
         if gui is not None:
             raise NotImplementedError("the viewer is not ported yet")
         self.model = model
+        self.mesh = mesh
         self.device = model.xyz.device
         self.max_capacity = max_capacity
         self.adam = optim_lib.init_adam(model.params)
@@ -423,7 +444,7 @@ class Trainer:
             self.model, self.adam, metrics = train_step(
                 self._settings(), self.opt_cfg, cfg.lambda_dssim, self.spatial_lr_scale,
                 self.model, self.adam, [self._cam_arrays[i] for i in idxs],
-                [self._gt_for(i) for i in idxs], bg, float(it), lam_n, lam_d)
+                [self._gt_for(i) for i in idxs], bg, float(it), lam_n, lam_d, self.mesh)
 
             # Adaptive cap growth: consume the overflow counters at the
             # densification cadence (one host sync per interval).
@@ -474,6 +495,9 @@ class Trainer:
 
     @torch.no_grad()
     def render_view(self, cam: Camera, depth_ratio: Optional[float] = None):
+        """The whole view on this rank's device, with no collective (as the
+        JAX Trainer's render_view ignores its mesh): one rank may call it
+        alone."""
         kwargs = dict(self.raster_kwargs)
         if depth_ratio is not None:
             kwargs["depth_ratio"] = depth_ratio
