@@ -60,8 +60,10 @@ and the rows phase alone; neither prints a verdict.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
+import re
 import resource
 import shutil
 import sys
@@ -138,13 +140,11 @@ MESH_SAMPLES = 1 << 18   # area-weighted samples of a mesh, from seed 0
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 # One SM of the 132: the reduction probes run one block by design (the TPU
-# probe's grid is (1,)), so their bound is one SM's. Its share of the f32
-# and dense bf16 tensor-core peaks, and its shared memory: 128 bytes a
-# clock at the 1,980 MHz boost clock (33.4 TB/s over the card).
+# probe's grid is (1,)), so their bound is one SM's: its share of the f32
+# and dense bf16 tensor-core peaks.
 SMS = 132
 SM_F32_S = PEAK_F32_S / SMS
 SM_BF16_S = 989e12 / SMS
-SM_SMEM_BYTES_S = 128 * 1.98e9
 # Operations per (candidate, row) of the select kernel's hit tests and per
 # (record, pixel) of the blend, counted from the kernels' source.
 BOX_TEST_OPS = 7
@@ -362,6 +362,19 @@ def count_level(level, kwargs, k1_counts):
     return info
 
 
+def ptxas_entries(source: str) -> dict[str, list[str]]:
+    """ptxas -v lines (registers, shared memory, spills) of each kernel of
+    csrc/<source>.cu, by its mangled entry name."""
+    entries, current = {}, None
+    for line in native.library_path(source).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            current = m.group(1)
+        elif current and ("registers" in line or "spill" in line):
+            entries.setdefault(current, []).append(line.split(":", 1)[-1].strip())
+    return entries
+
+
 def reduce_check():
     """Hold both reduction-probe kernels against their plain version at the
     probe's own size (512 steps of 16 planes)."""
@@ -381,19 +394,20 @@ def reduce_check():
     # Bounds on the one SM each kernel runs on. Shuffle: per step 16 planes
     # of 2048 values, each built (a multiply and an add) and summed (an
     # add), and 16 rows of 128 weighted and added, at one SM's f32 rate.
-    # Tensor cores: the selector products (three bfloat16 parts of each
-    # plane) at one SM's bf16 rate, and the plane values and their splits
-    # (4 f32 operations a value) at its f32 rate. The kernel as written
-    # also stages the three parts through shared memory, written once and
-    # read once by the products: a cost of its design, not of the function
-    # (fragments can be built in registers), reported beside the bound.
+    # Tensor cores, the larger of two pipes' times: the selector products at
+    # one SM's bf16 rate, one m16n8k16 product per part, 16-column x-block
+    # and plane (3 x 8 x 16 = 384 a step, as the kernel shows enough), and
+    # the plane values and their splits (4 f32 operations a value) at its
+    # f32 rate.
     plane_values = reduce_probe.NPLANES * reduce_probe.BY * reduce_probe.BX
     ops = steps * (plane_values * 3 + reduce_probe.NPLANES * reduce_probe.BX * 2)
-    mma_ops_s = (steps * 3 * 2 * reduce_probe.NPLANES * plane_values / SM_BF16_S
-                 + steps * plane_values * 4 / SM_F32_S)
-    smem_staging_ms = steps * 2 * 3 * plane_values * 2 / SM_SMEM_BYTES_S * 1e3
+    products = steps * 3 * (reduce_probe.BX // 16) * reduce_probe.NPLANES
+    mma_s = max(products * 2 * 16 * 8 * 16 / SM_BF16_S,
+                steps * plane_values * 4 / SM_F32_S)
     bounds = {"reduce_probe_shuffle": (ops / SM_F32_S * 1e3, "operations"),
-              "reduce_probe_mma": (mma_ops_s * 1e3, "operations")}
+              "reduce_probe_mma": (mma_s * 1e3, "operations")}
+    entries = ptxas_entries("reduce_probe")
+    dynamic_smem = native.function("reduce_probe", "reduce_probe_dynamic_smem", [ctypes.c_int])
     infos = {}
     for name in ("reduce_probe_shuffle", "reduce_probe_mma"):
         fn = getattr(reduce_probe, name)
@@ -404,14 +418,19 @@ def reduce_check():
         if not (math.isfinite(rel) and rel <= REDUCE_TOL and bits_equal(got, again)):
             fail(f"{name}: max relative error {rel} against plain (tol {REDUCE_TOL}), "
                  f"two launches equal: {bits_equal(got, again)}")
+        ptxas = [line for entry, lines in entries.items() if f"{name}_kernel" in entry
+                 for line in lines]
+        spills = [line for line in ptxas if re.search(r"[1-9]\d* bytes spill", line)]
+        if not ptxas or spills:
+            fail(f"{name}: ptxas reports {ptxas or 'nothing'}")
         ms = cuda_ms(lambda: fn(base, steps), reps=20)
         infos[name] = dict(steps=steps, acc0=float(got[0]), plain_acc0=float(ref[0]),
                            max_rel_err=rel, max_abs_err=float((got - ref).abs().max()),
                            ms=ms, ns_per_set=ms * 1e6 / steps, plain_ms=plain_ms,
                            planes_sum_ms=planes_sum_ms, bound_ms=bounds[name][0],
-                           bound_by=bounds[name][1], bound_scope="one SM")
-        if name == "reduce_probe_mma":
-            infos[name]["smem_staging_ms"] = smem_staging_ms
+                           bound_by=bounds[name][1], bound_scope="one SM",
+                           dynamic_smem_bytes=dynamic_smem(int(name == "reduce_probe_mma")),
+                           ptxas=ptxas)
         emit({"phase": "kernels", "kernel": name, **infos[name]})
     return infos
 
@@ -1740,7 +1759,9 @@ def main() -> None:
            "bound_by": reduce_infos[name]["bound_by"],
            # no one PyTorch call computes it: planes_sum_ms (kernels phase) times
            # only the row sums of planes that already exist in device memory
-           "library_ms": None}
+           "library_ms": None,
+           "dynamic_smem_bytes": reduce_infos[name]["dynamic_smem_bytes"],
+           "ptxas": reduce_infos[name]["ptxas"]}
           for name, line, tpu in (("reduce_probe_shuffle", 44, "kernel_vpu"),
                                   ("reduce_probe_mma", 56, "kernel_mxu"))),
     ]})

@@ -187,18 +187,29 @@ def test_count_kernel_bit_equal(cuda, case):
     assert torch.equal(got, ref) and torch.equal(got, k1_counts)
 
 
+def _distinct_base(dev):
+    """A (16,128) input of 2048 distinct values in [0, 1): a fragment read
+    from or written to the wrong column shows in the row."""
+    g = torch.Generator().manual_seed(5)
+    return ((torch.randperm(2048, generator=g).float() + 0.5) / 2048).reshape(16, 128).to(dev)
+
+
 @pytest.mark.parametrize("name", ["reduce_probe_shuffle", "reduce_probe_mma"])
-@pytest.mark.parametrize("steps", [4, 512])
-def test_reduce_probe_kernels_match_plain(cuda, name, steps):
+@pytest.mark.parametrize("steps", [1, 7, 512])
+@pytest.mark.parametrize("inputs", ["seed1", "distinct"])
+def test_reduce_probe_kernels_match_plain(cuda, name, steps, inputs):
     """Every element of the row within relative 1e-5 of the plain version
-    (the same float32 terms summed in another order)."""
-    base = reduce_probe.probe_input(1, cuda)
+    (the same float32 terms summed in another order), and two launches
+    bit-equal."""
+    base = reduce_probe.probe_input(1, cuda) if inputs == "seed1" else _distinct_base(cuda)
     before = native.LAUNCHES[name]
     got = getattr(reduce_probe, name)(base, steps)
+    again = getattr(reduce_probe, name)(base, steps)
     ref = reduce_probe.reduce_probe_plain(base, steps)
     torch.cuda.synchronize()
-    assert native.LAUNCHES[name] == before + 1
+    assert native.LAUNCHES[name] == before + 2
     assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 def test_bin_probe_small(cuda, capsys):

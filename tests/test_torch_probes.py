@@ -25,7 +25,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from tpu2dgs.raster import select_kernel as jselect
-from tpu2dgs_torch.eval import bin_probe, reduce_probe
+from tpu2dgs_torch.eval import bin_probe, reduce_probe, reduce_turns
 from tpu2dgs_torch.eval import synthetic
 from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.raster import binning, cuda_backend, preprocess
@@ -190,6 +190,60 @@ def test_reduce_probe_matches_tpu_kernels(tpu_probe, name):
     np.testing.assert_allclose(float(got[0]), mxu, rtol=1e-6)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
     np.testing.assert_allclose([vpu, mxu], want[0], rtol=1e-6)
+
+
+def _top16(a: torch.Tensor) -> torch.Tensor:
+    """float32 with its low 16 bits cleared, as the kernel masks them."""
+    return (a.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _pack_top_halves(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """__byte_perm(a, b, 0x7632): a's top half low, b's high, as int32."""
+    return (b.view(torch.int32) & -65536) | ((a.view(torch.int32) >> 16) & 0xFFFF)
+
+
+def _bfloat16_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a and b converted to bfloat16 and read as one int32 (a low)."""
+    return torch.stack([a.bfloat16(), b.bfloat16()], dim=-1).view(torch.int32)[..., 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_three_way_split_is_exact_in_bfloat16(seed):
+    """reduce_probe_mma's split (csrc/reduce_probe.cu): every plane value
+    p = fma(base, f, f) is hi + mid + lo bit for bit, each part is its own
+    top 16 bits, so the byte permute that packs a pair of rows (the even
+    row low, as the m16n8k16 A fragment holds them) into an operand is the
+    parts' bfloat16 conversion, with nothing rounded."""
+    base = reduce_probe.probe_input(seed, "cpu").double()
+    for s in (0, 1, 255, 511):
+        f = (s * 16 + 1 + torch.arange(16, dtype=torch.float64))[:, None, None]
+        p = (base * f + f).float()  # exact in float64, so one rounding: __fmaf_rn's
+        hi = _top16(p)
+        rem = p - hi
+        mid = _top16(rem)
+        lo = rem - mid
+        assert torch.equal(((hi + mid) + lo).view(torch.int32), p.view(torch.int32))
+        for part in (hi, mid, lo):
+            assert not bool((part.view(torch.int32) & 0xFFFF).any())
+        # the kernel packs p, rem and lo; their top halves are hi, mid, lo
+        for packed, part in ((p, hi), (rem, mid), (lo, lo)):
+            got = _pack_top_halves(packed[:, 0::2], packed[:, 1::2])
+            assert torch.equal(got, _bfloat16_pair(part[:, 0::2], part[:, 1::2]))
+
+
+def test_reduce_probe_f64_witness_is_the_function():
+    """eval.reduce_turns' closed form equals the probe's function summed
+    term by term in float64, and the plain version is within 1e-6 of it
+    at 7 steps."""
+    base = reduce_probe.probe_input(0, "cpu")
+    steps = 7
+    f = (torch.arange(steps * 16, dtype=torch.float64) + 1).reshape(steps, 16)[..., None, None]
+    rows = (base.double() * f + f).sum(dim=2)                        # (steps, 16, 128)
+    want = (rows * torch.arange(1, 17, dtype=torch.float64)[None, :, None]).sum(dim=(0, 1))
+    witness = reduce_turns.reduce_probe_f64(base, steps)
+    torch.testing.assert_close(witness, want, rtol=1e-14, atol=0)
+    plain = reduce_probe.reduce_probe_plain(base, steps).double()
+    assert float(((plain - witness) / witness).abs().max()) <= 1e-6
 
 
 def test_reduce_probe_refuses_bad_input():

@@ -7,15 +7,17 @@ The backward blend kernel reduces every record's gradient terms over a
 tile's pixels; this probe measures the primitive head to head, so a
 redesign of that reduction rests on numbers:
 
-  shuffle  the SIMT way: each thread sums 4 rows of its column, two
-           __shfl_xor_sync steps finish the 16 rows
-           (`reduce_probe_shuffle`, the counterpart of the TPU probe's
-           `kernel_vpu`).
-  mma      the tensor-core way: the 16 planes of a step stored into a
-           (256,128) slab, split three ways so each part is exact in
-           bfloat16, and one {0,1}-selector product per part sums every
-           plane's rows at once (`reduce_probe_mma`, the counterpart of
-           `kernel_mxu`).
+  shuffle  the SIMT way: each thread sums 4 rows of its column for all
+           16 planes of a step, and a transpose tree of 8 + 4
+           __shfl_xor_sync finishes them over the 4 row groups, as the
+           backward blend kernel reduces (`reduce_probe_shuffle`, the
+           counterpart of the TPU probe's `kernel_vpu`).
+  mma      the tensor-core way: each value split three ways by masking its
+           top 16 bits, so each part is exact in bfloat16; the parts packed
+           straight into mma.sync.m16n8k16 operands in registers (nothing
+           staged in shared memory), and a {0,1}-selector product per part
+           and plane sums the plane's 16 rows (`reduce_probe_mma`, the
+           counterpart of `kernel_mxu`).
 
 Both compute, for `steps` steps of 16 fresh planes built from a resident
 (16,128) input so that nothing can be hoisted,
