@@ -66,6 +66,7 @@ import math
 import re
 import resource
 import shutil
+import subprocess
 import sys
 import time
 from collections import Counter
@@ -149,6 +150,12 @@ SM_BF16_S = 989e12 / SMS
 # (record, pixel) of the blend, counted from the kernels' source.
 BOX_TEST_OPS = 7
 EXACT_TEST_OPS = 198
+# The count kernel's issue-slot floor: an SM issues one warp-instruction a
+# clock on each of its 4 schedulers (128 lanes a clock) at the H100 SXM's
+# boost clock, whatever the instructions are; --fmad=false makes every
+# multiply and add of the test its own instruction.
+LANES_PER_SM = 128
+SM_CLOCK_HZ = 1.98e9
 BLEND_OPS = 89
 # Backward blend: the response and hit test of every (record, pixel) pair,
 # and for a pair that blended, the gradient arithmetic plus one add per
@@ -331,7 +338,43 @@ def select_level(level, kwargs):
     return info, cnt
 
 
-def count_level(level, kwargs, k1_counts):
+def sass_item_instructions(source: str) -> dict[str, tuple[int, int]]:
+    """(body, loop): static SASS instructions of each kernel's innermost
+    loop that holds all its 128-bit loads, from the loop's top to the first
+    barrier after those loads and to its end, by mangled name, from
+    `cuobjdump -sass` of csrc/<source>'s built library (NOPs left out). For
+    the count kernel the loop is its item loop: every warp runs the body,
+    the test of its threads' 4 candidates each and their sums, once a
+    walked item; warp 0 then runs the ticket tail in the rest."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(native.library_path(source))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    funcs, current = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)(.*)", line)
+        if current is not None and m and m.group(2) != "NOP":
+            current.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for name, ins in funcs.items():
+        loads = [a for a, op, _ in ins if op.startswith("LDG.E.128")]
+        if not loads:
+            continue
+        targets = [(int(t.group(1), 16), a) for a, op, rest in ins
+                   if op == "BRA" and (t := re.match(r"\s+0x([0-9a-f]+)", rest))]
+        loops = [(lo, hi) for lo, hi in targets if lo <= min(loads) and hi >= max(loads)]
+        bars = [a for a, op, _ in ins if op.startswith("BAR") and a > max(loads)]
+        if loops and bars:
+            lo, hi = min(loops, key=lambda loop: loop[1] - loop[0])
+            out[name] = (sum(1 for a, _, _ in ins if lo <= a <= min(bars)),
+                         sum(1 for a, _, _ in ins if lo <= a <= hi))
+    return out
+
+
+def count_level(level, kwargs, k1_counts, sass):
     """Hold the count-only select kernel against its plain version and
     against the counts the select kernel returned for the same level."""
     kwargs = {k: v for k, v in kwargs.items() if k != "cap"}
@@ -344,6 +387,8 @@ def count_level(level, kwargs, k1_counts):
         if got.dtype != torch.int32 or not torch.equal(got, other.to(torch.int32)):
             fail(f"count {level}: kernel differs from {name} in "
                  f"{int((got != other).sum())} of {got.numel()} rows")
+    if any(bool(t.any()) for t in select_kernel._TICKETS.values()):
+        fail(f"count {level}: a ticket is not back at zero")
     ms = cuda_ms(lambda: select_kernel.select_counts(**kwargs), reps=20)
     plain_ms = cuda_ms(lambda: select_kernel.select_counts_plain(**kwargs), reps=5, warmup=1)
     kernel_ms = bin_probe.alone_ms(select_kernel._count_launch, kwargs)
@@ -355,9 +400,35 @@ def count_level(level, kwargs, k1_counts):
     bytes_ = 4 * (read * n_test + rows * 7)
     ops = int(walked.sum()) * test_ops
     bound_ms, bound_by = bound(bytes_, ops)
+    # The grid the wrapper launched, and the issue-slot floor: every warp
+    # runs the item loop's body of the kernel's instantiation for the
+    # level's tests once a walked item, 4 candidates a thread, so the body's
+    # SASS count over 4 is a test's instructions (warp 0's tail left out).
+    sms, per_sm = select_kernel.count_occupancy(got.device)
+    plan = select_kernel.count_plan(rows, select_walk_m(kwargs), sms, per_sm)
+    tests = "ILb{:d}ELb{:d}E".format(kwargs.get("box_idx", (0, 1, 2, 3)) is not None,
+                                     kwargs.get("exact_idx") is not None)
+    loop = [n for name, n in sass.items() if f"select_counts_kernel{tests}" in name]
+    if len(loop) != 1:
+        fail(f"count {level}: no single item loop of select_counts_kernel{tests} in {sass}")
+    per_test = loop[0][0] / 4
+    floor_ms = int(walked.sum()) * per_test / (SMS * LANES_PER_SM * SM_CLOCK_HZ) * 1e3
+    # Walked items a CTA takes in the launch's chunk-major order: the
+    # longest CTA's against the mean.
+    item_rows, item_chunks = (t.to(got.device) for t in select_kernel.count_items(plan))
+    on_walk = item_chunks < walked[item_rows] // select_kernel.CHUNK
+    per_cta = torch.zeros(plan.ctas, device=got.device).index_add_(
+        0, torch.arange(plan.items, device=got.device) % plan.ctas, on_walk.float())
     info = dict(level=level, rows=rows, walked=int(walked.sum()), hits=int(got.sum()),
+                items=plan.items, walked_items=int(walked.sum()) // select_kernel.CHUNK,
+                ctas=plan.ctas, walked_items_per_cta_max=int(per_cta.max()),
+                walked_items_per_cta_mean=float(per_cta.mean()),
                 ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=0.0)
+                bound_by=bound_by, item_body_instructions=loop[0][0],
+                item_loop_instructions=loop[0][1],
+                instructions_per_test=per_test, issue_floor_ms=floor_ms,
+                l2_read_bytes=int(walked.sum()) * n_test * 4, device_read_bytes=bytes_,
+                max_abs_err=0.0)
     emit({"phase": "kernels", "kernel": "select_counts", **info})
     return info
 
@@ -1624,11 +1695,15 @@ def main() -> None:
                  if "registers" in line or "spill" in line] for n in native.SOURCES}
     occupancy = cuda_backend.blend_occupancy(torch.device("cuda"))
     sms, select_per_sm = select_kernel.kernel_occupancy(torch.device("cuda"))
+    _, count_per_sm = select_kernel.count_occupancy(torch.device("cuda"))
+    count_sass = sass_item_instructions("select_counts")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "knn_build_seconds": knn_build_s,
           "libraries": [native.library_path(n).name for n in native.SOURCES],
           "ptxas": ptxas, "blend_occupancy": occupancy,
-          "select_occupancy": {"sms": sms, "ctas_per_sm": select_per_sm}})
+          "select_occupancy": {"sms": sms, "ctas_per_sm": select_per_sm},
+          "count_occupancy": {"sms": sms, "ctas_per_sm": count_per_sm},
+          "count_item_loop_instructions": count_sass})
 
     if sys.argv[1:] == ["rows"]:
         rows_phase()  # `python3 chip_smoke.py rows`: build and the rows phase, no verdict
@@ -1637,7 +1712,7 @@ def main() -> None:
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)
     levels, level_counts = zip(*(select_level(lv, k)
                                  for lv, (_, k) in zip(("L1", "L2", "L3"), selects)))
-    count_levels = [count_level(lv, selects[i][1], level_counts[i])
+    count_levels = [count_level(lv, selects[i][1], level_counts[i], count_sass)
                     for i, lv in ((1, "L2"), (2, "L3"))]
     reduce_infos = reduce_check()
     blend = blend_check(rec3, counts, nty)
@@ -1746,6 +1821,13 @@ def main() -> None:
          "bound_by": "bytes" if all(lv["bound_by"] == "bytes" for lv in count_levels)
          else "operations",
          "library_ms": None,
+         "alone_ms": {lv["level"]: lv["kernel_ms"] for lv in count_levels},
+         "issue_floor_ms": {lv["level"]: lv["issue_floor_ms"] for lv in count_levels},
+         "grid": {lv["level"]: {k: lv[k] for k in ("items", "walked_items", "ctas",
+                                                    "walked_items_per_cta_max")}
+                  for lv in count_levels},
+         "occupancy": {"ctas_per_sm": count_per_sm, "sms": sms},
+         "ptxas": ptxas["select_counts"],
          "levels": count_levels},
         *({"name": name, "route": "cuda",
            "source": "tpu2dgs_torch/csrc/reduce_probe.cu",

@@ -171,20 +171,74 @@ def test_select_values_raises_on_refused_launch(cuda, monkeypatch):
     assert torch.equal(cnt, ref_cnt) and torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
+def _tickets_zero() -> bool:
+    return not any(bool(t.any()) for t in select_kernel._TICKETS.values())
+
+
+def _count_args(kw):
+    """select_counts' arguments of a select case, and its walk's M."""
+    kw = {k: v for k, v in kw.items() if k != "cap"}
+    m = -(-kw["cand_channels"][0].shape[-1] // select_kernel.MACRO) * select_kernel.MACRO
+    return kw, m
+
+
 @pytest.mark.parametrize("case", sorted(SELECT_CASES))
 def test_count_kernel_bit_equal(cuda, case):
     """The count-only kernel against its plain version and against the
-    counts the select kernel returns for the same arguments."""
+    counts the select kernel returns for the same arguments; two launches
+    equal, one counted launch a call, every ticket back at zero."""
     kw = SELECT_CASES[case](cuda)
     _, k1_counts = select_kernel.select_values(**kw)
-    del kw["cap"]
+    kw, _ = _count_args(kw)
     before = native.LAUNCHES["select_counts"]
     got = select_kernel.select_counts(**kw)
+    assert native.LAUNCHES["select_counts"] == before + 1
+    again = select_kernel.select_counts(**kw)
     ref = select_kernel.select_counts_plain(**kw)
     torch.cuda.synchronize()
-    assert native.LAUNCHES["select_counts"] == before + 1
+    assert native.LAUNCHES["select_counts"] == before + 2
     assert got.dtype == torch.int32
-    assert torch.equal(got, ref) and torch.equal(got, k1_counts)
+    assert torch.equal(got, ref) and torch.equal(got, k1_counts) and torch.equal(again, got)
+    assert _tickets_zero()
+
+
+@pytest.mark.parametrize("grid", SMALL_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("case", sorted(SELECT_CASES))
+def test_count_kernel_small_grids(cuda, monkeypatch, case, grid):
+    """The count kernel over grids of 1, 3 and 7 CTAs, where a CTA takes
+    many items and a row's last ticket may fall to any of them, with every
+    buffer the wrapper allocates filled with junk first: counts equal plain
+    whatever the memory held, every ticket back at zero."""
+    kw, m = _count_args(SELECT_CASES[case](cuda))
+    plan = select_kernel.count_plan(kw["parent_of_row"].shape[0], m, *grid)
+    assert grid != (1, 1) or plan.items > plan.ctas
+    ref = select_kernel.select_counts_plain(**kw)
+    select_kernel.count_occupancy(cuda)  # builds the kernel on the real occupancy
+    monkeypatch.setitem(select_kernel._COUNT_OCCUPANCY, cuda.index or 0, grid)
+    empty = torch.empty
+    for junk in (-1, 0x12345678):
+        monkeypatch.setattr(torch, "empty", lambda *a, **k: empty(*a, **k).fill_(junk))
+        got = select_kernel.select_counts(**kw)
+        monkeypatch.setattr(torch, "empty", empty)
+        assert torch.equal(got, ref), junk
+    torch.cuda.synchronize()
+    assert _tickets_zero()
+
+
+def test_count_kernel_raises_on_refused_launch(cuda, monkeypatch):
+    """A grid of no CTAs is refused by the launcher: the wrapper raises,
+    counts no launch, leaves the tickets at zero, and the next launch is
+    right."""
+    kw, _ = _count_args(_box_case(cuda, 512))
+    select_kernel.count_occupancy(cuda)
+    monkeypatch.setitem(select_kernel._COUNT_OCCUPANCY, cuda.index or 0, (0, 4))
+    before = native.LAUNCHES["select_counts"]
+    with pytest.raises(RuntimeError, match="select_counts"):
+        select_kernel.select_counts(**kw)
+    assert native.LAUNCHES["select_counts"] == before
+    monkeypatch.undo()
+    got = select_kernel.select_counts(**kw)
+    assert torch.equal(got, select_kernel.select_counts_plain(**kw)) and _tickets_zero()
 
 
 def _distinct_base(dev):

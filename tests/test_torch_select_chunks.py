@@ -17,6 +17,13 @@ walked candidate once and write every output slot once, and the order to
 put every row's writes after its counts. Imports no JAX and compiles
 nothing; tests/test_torch_cuda.py runs the same cases through the kernel
 on the card, over the full grid and over grids of a few CTAs.
+
+The count-only kernel (csrc/select_counts.cu) takes the same (row, chunk)
+items in chunk-major order with no order to keep: each walked item counts
+its chunk and takes a ticket of its row, and the item that draws the last
+ticket stores the row's sum. `select_kernel.count_plan`, `count_items` and
+`count_model` are its grid, its order and its plain model, held here
+against `select_counts_plain` on the same cases.
 """
 
 import numpy as np
@@ -99,6 +106,12 @@ CASES = {
                  and bool((c.tested[0, 5000:] == 1).all())),
     "overflow_in_first_chunk": (lambda dev: _dense(dev, 4096, [4096, 700], 128),
                                 lambda c, cap: bool((c.chunk_hits[:, 0] > cap).all())),
+    # walks of 32 chunks beside walks of one: a fixed split a row would wait
+    # on the long rows
+    "skewed_walks": (lambda dev: _random_boxes(dev, 5, 2, 32768,
+                                               [32768, 1024, 1000, 32768, 1, 32000], 1024),
+                     lambda c, cap: int(c.tested.sum(dim=1).max())
+                     == 32 * int(c.tested.sum(dim=1).min())),
 }
 
 
@@ -183,3 +196,41 @@ def test_pad_slots_cover_once():
         assert torch.equal(share.sum(dim=1), (slots[0] >= filled).to(torch.int64))
         assert torch.equal(hi[:, :-1], lo[:, 1:]) and bool((hi >= lo).all())
         assert bool((lo[:, 1:] % 4 == 0)[hi[:, 1:] > lo[:, 1:]].all())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_count_model_matches_plain(case):
+    """The count kernel's decomposition gives select_counts_plain's counts
+    whatever order the items take their tickets in; every walked candidate
+    is tested once, every row's count is stored by exactly one item (a row
+    that walks nothing by its chunk 0), and every ticket ends at zero."""
+    kw = CASES[case][0]("cpu")
+    del kw["cap"]
+    ref = sk.select_counts_plain(**kw)
+    m = -(-kw["cand_channels"][0].shape[-1] // CHUNK) * CHUNK
+    walk = sk._walked(kw["parent_counts"], m)
+    walked = (torch.arange(m)[None, :] < walk[:, None]).to(torch.int32)
+    assert bool((walk > CHUNK).any()), f"{case}: no row takes tickets"
+    for finish in (None, torch.Generator().manual_seed(7)):
+        model = sk.count_model(**kw, finish=finish)
+        assert torch.equal(model.counts, ref)
+        assert torch.equal(model.tested, walked)
+        assert torch.equal(model.stores, torch.ones_like(model.stores))
+        assert not bool(model.tickets.any())
+        many = walk > CHUNK  # rows whose count is the sum of their item slots
+        assert torch.equal(model.item_hits.sum(dim=1, dtype=torch.int32)[many], ref[many])
+
+
+@pytest.mark.parametrize("rows, m, items", PLANS)
+def test_count_plan(rows, m, items):
+    """The count kernel's grid: rows x M / CHUNK items over as many CTAs as
+    the card holds (132 SMs x 4 CTAs) or as items, one scratch slot an item
+    and one ticket a row; the order takes every item once, chunk-major."""
+    plan = sk.count_plan(rows, m, 132, 4)
+    assert plan.items == items == rows * plan.chunks
+    assert plan.chunks * CHUNK == m
+    assert plan.ctas == min(items, 528)
+    assert (plan.scratch, plan.tickets) == (items, rows)
+    row, ch = sk.count_items(plan)
+    assert torch.equal(torch.sort(row * plan.chunks + ch).values, torch.arange(items))
+    assert bool((ch[:rows] == 0).all()) and bool((torch.diff(ch) >= 0).all())

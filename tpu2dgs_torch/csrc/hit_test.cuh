@@ -2,7 +2,8 @@
 // exact conic-union-circle coverage of a splat against an inclusive pixel
 // rectangle. One copy, included by select_values.cu (which carries the hits'
 // channels) and select_counts.cu (which only counts them), so both decide
-// every candidate with the same instructions: their counts are bit-equal.
+// every candidate with the same instructions (`hits4`, four consecutive
+// candidates a thread): their counts are bit-equal.
 // blend_common.cuh runs `exact_coverage` on the blend kernels' pixel blocks.
 //
 // Compiled with --fmad=false and IEEE division, in the operation order of
@@ -15,6 +16,7 @@
 #include <stddef.h>
 
 constexpr int kMacro = 1024;  // candidates walk in whole blocks of 8 x 128
+constexpr int kPer = 4;       // consecutive candidates a thread tests: one float4
 
 struct HitTest {
   int box[4];      // channels x0, x1, y0, y1 (use_box)
@@ -38,12 +40,19 @@ static inline HitTest make_hit_test(const int* box_idx, const int* exact_idx) {
   return t;
 }
 
-// jnp.minimum / jnp.maximum semantics: NaN propagates.
+// jnp.minimum / jnp.maximum semantics: NaN propagates (a NaN in, the
+// canonical NaN out), one instruction each (sm_80's min.NaN / max.NaN). Of
+// two zeros either may come out: no test below tells +0 from -0, because a
+// clamped value only enters sums that are then squared.
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : (a < b ? a : b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : (a > b ? a : b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return min_nan(max_nan(x, lo), hi);
@@ -100,25 +109,47 @@ __device__ inline bool exact_coverage(const float* v, float rx0, float rx1, floa
   return (best <= 0.0f) | not_ell | circ;
 }
 
-// Does candidate j of the channel-major list `base` (channel c at base[c * m
-// + j]) hit the rectangle? Reads only the 4 and/or 13 tested channels.
-__device__ __forceinline__ bool candidate_hits(const float* __restrict__ base, size_t m,
-                                               int j, const HitTest& t, const Rect& rc) {
-  bool hit = true;
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float part(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Bits 0-3: do candidates j..j+3 of the channel-major list `base` (channel c
+// at base[c * m + j], j a multiple of 4, base 16-byte aligned) hit the
+// rectangle? One float4 load per tested channel; reads only the 4 and/or 13
+// tested channels.
+__device__ __forceinline__ unsigned hits4(const float* __restrict__ base, size_t m, int j,
+                                          const HitTest& t, const Rect& rc) {
+  unsigned bits = 0xFu;
   if (t.use_box) {
-    const float x0 = base[t.box[0] * m + j];
-    const float x1 = base[t.box[1] * m + j];
-    const float y0 = base[t.box[2] * m + j];
-    const float y1 = base[t.box[3] * m + j];
-    hit = (x0 <= rc.x1) & (x1 >= rc.x0) & (y0 <= rc.y1) & (y1 >= rc.y0);
+    const float4 x0 = load4(base + t.box[0] * m + j);
+    const float4 x1 = load4(base + t.box[1] * m + j);
+    const float4 y0 = load4(base + t.box[2] * m + j);
+    const float4 y1 = load4(base + t.box[3] * m + j);
+    bits = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const bool hit = (part(x0, k) <= rc.x1) & (part(x1, k) >= rc.x0) &
+                       (part(y0, k) <= rc.y1) & (part(y1, k) >= rc.y0);
+      bits |= (unsigned)hit << k;
+    }
   }
   if (t.use_exact) {
-    float v[13];
+    float4 v4[13];
 #pragma unroll
-    for (int i = 0; i < 13; ++i) v[i] = base[t.exact[i] * m + j];
-    hit = hit & exact_coverage(v, rc.x0, rc.x1, rc.y0, rc.y1);
+    for (int i = 0; i < 13; ++i) v4[i] = load4(base + t.exact[i] * m + j);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      float v[13];
+#pragma unroll
+      for (int i = 0; i < 13; ++i) v[i] = part(v4[i], k);
+      if (!exact_coverage(v, rc.x0, rc.x1, rc.y0, rc.y1)) bits &= ~(1u << k);
+    }
   }
-  return hit;
+  return bits;
 }
 
 // The candidates a row walks: whole macro blocks up to its parent's live

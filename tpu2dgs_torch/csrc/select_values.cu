@@ -68,7 +68,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPer = 4;                  // consecutive candidates per thread: one float4
 constexpr int kChunk = kThreads * kPer;  // candidates per work item
 static_assert(kChunk == kMacro, "a work item is one macro block of the walk");
 constexpr int kMaxChan = 32;
@@ -86,47 +85,6 @@ struct Params {
   int positions;   // 2 * groups * group * chunks
   float pads[kMaxChan];
 };
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float part(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-// Bits 0-3: do candidates j..j+3 of the channel-major list `base` hit the
-// rectangle? candidate_hits' test, four candidates per float4 load.
-__device__ __forceinline__ unsigned hits4(const float* __restrict__ base, size_t m, int j,
-                                          const HitTest& t, const Rect& rc) {
-  unsigned bits = 0xFu;
-  if (t.use_box) {
-    const float4 x0 = load4(base + t.box[0] * m + j);
-    const float4 x1 = load4(base + t.box[1] * m + j);
-    const float4 y0 = load4(base + t.box[2] * m + j);
-    const float4 y1 = load4(base + t.box[3] * m + j);
-    bits = 0;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const bool hit = (part(x0, k) <= rc.x1) & (part(x1, k) >= rc.x0) &
-                       (part(y0, k) <= rc.y1) & (part(y1, k) >= rc.y0);
-      bits |= (unsigned)hit << k;
-    }
-  }
-  if (t.use_exact) {
-    float4 v4[13];
-#pragma unroll
-    for (int i = 0; i < 13; ++i) v4[i] = load4(base + t.exact[i] * m + j);
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      float v[13];
-#pragma unroll
-      for (int i = 0; i < 13; ++i) v[i] = part(v4[i], k);
-      if (!exact_coverage(v, rc.x0, rc.x1, rc.y0, rc.y1)) bits &= ~(1u << k);
-    }
-  }
-  return bits;
-}
 
 // A load with acquire semantics at device scope: what the writer released
 // before it is visible after it.

@@ -60,6 +60,33 @@ def alone_ms(launch, kwargs, cap=None) -> float:
 
 
 @torch.no_grad()
+def levels(dev, w: int = W, h: int = H, n: int = N_SPLATS, bin_cap: int = BIN_CAP,
+           tile_cap: int = TILE_CAP, col_cap: int = COL_CAP, step=None) -> dict:
+    """The bench scene's three select levels, each run on what the level
+    before it produced: {level: (select_values kwargs, cap, (channels,
+    counts))} for L1, L2, L3. `step(label, fn)` runs each step of the chain
+    (the three levels and the column gather between L1 and L2) and returns
+    its result; by default it calls fn once."""
+    step = step or (lambda label, fn: fn())
+    cam, scene = synthetic.make_bench_scene(w, h, n, device=dev)
+    splats = preprocess.preprocess(*scene, cam, w, h, 3)
+    nbx, nty = -(-w // cb.BX), -(-h // cb.BY)
+    comp = binning.compact_visible(splats, n)
+    rec = cb.pack_records(splats)
+    n_vis = torch.clamp(comp.num_visible, max=n)
+    col_capk, bin_capk, capk = cb._level_caps(n, bin_cap, tile_cap, col_cap)
+    l1 = cb._l1_args(comp.x0, comp.x1, comp.y0, comp.y1, n_vis, nbx, nty, comp.perm)
+    out1 = step("L1 columns", lambda: select_kernel.select_values(cap=col_capk, **l1))
+    l2_in = step("col gather+transpose", lambda: cb._column_lists(rec, *out1))
+    l2 = cb._l2_args(l2_in, out1[1], nbx, nty)
+    out2 = step("L2 coarse bins (exact)",
+                lambda: select_kernel.select_values(cap=bin_capk, **l2))
+    l3 = cb._l3_args(out2[0], out2[1], nbx, nty)
+    out3 = step("L3 fine tiles (exact)", lambda: select_kernel.select_values(cap=capk, **l3))
+    return {"L1": (l1, col_capk, out1), "L2": (l2, bin_capk, out2), "L3": (l3, capk, out3)}
+
+
+@torch.no_grad()
 def run(device=None, w: int = W, h: int = H, n: int = N_SPLATS, bin_cap: int = BIN_CAP,
         tile_cap: int = TILE_CAP, col_cap: int = COL_CAP, reps: int = 20,
         alone: bool = False) -> dict:
@@ -69,14 +96,6 @@ def run(device=None, w: int = W, h: int = H, n: int = N_SPLATS, bin_cap: int = B
     dev = default_device(device)
     if dev.type != "cuda":
         raise RuntimeError("the binning probe times CUDA kernels: it needs a GPU")
-    cam, scene = synthetic.make_bench_scene(w, h, n, device=dev)
-    splats = preprocess.preprocess(*scene, cam, w, h, 3)
-    nbx, nty = -(-w // cb.BX), -(-h // cb.BY)
-    comp = binning.compact_visible(splats, n)
-    rec = cb.pack_records(splats)
-    n_vis = torch.clamp(comp.num_visible, max=n)
-    col_capk, bin_capk, capk = cb._level_caps(n, bin_cap, tile_cap, col_cap)
-
     times = {}
 
     def timed(label, fn):
@@ -86,16 +105,10 @@ def run(device=None, w: int = W, h: int = H, n: int = N_SPLATS, bin_cap: int = B
         return out
 
     before = native.LAUNCHES.copy()
-    l1 = cb._l1_args(comp.x0, comp.x1, comp.y0, comp.y1, n_vis, nbx, nty, comp.perm)
-    cchan, col_cnt = timed("L1 columns",
-                           lambda: select_kernel.select_values(cap=col_capk, **l1))
-    l2_in = timed("col gather+transpose", lambda: cb._column_lists(rec, cchan, col_cnt))
-    l2 = cb._l2_args(l2_in, col_cnt, nbx, nty)
-    bchan, bin_counts = timed("L2 coarse bins (exact)",
-                              lambda: select_kernel.select_values(cap=bin_capk, **l2))
-    l3 = cb._l3_args(bchan, bin_counts, nbx, nty)
-    _, tile_counts = timed("L3 fine tiles (exact)",
-                           lambda: select_kernel.select_values(cap=capk, **l3))
+    lv = levels(dev, w, h, n, bin_cap, tile_cap, col_cap, step=timed)
+    l1, col_capk, (_, col_cnt) = lv["L1"]
+    l2, bin_capk, (_, bin_counts) = lv["L2"]
+    l3, capk, (_, tile_counts) = lv["L3"]
     bin_only = timed("L2 count-only", lambda: select_kernel.select_counts(**l2))
     tile_only = timed("L3 count-only", lambda: select_kernel.select_counts(**l3))
     torch.cuda.synchronize()
@@ -123,7 +136,7 @@ def run(device=None, w: int = W, h: int = H, n: int = N_SPLATS, bin_cap: int = B
     return {"ms": times, "alone_ms": kernels_alone, "launches": launches, "passes": passes,
             "col_counts": col_total,
             "bin_counts": bin_total, "tile_counts": int(tile_counts.sum()),
-            "rows": {"L1": nbx, "L2": int(bin_counts.shape[0]), "L3": int(tile_counts.shape[0])},
+            "rows": {"L1": -(-w // cb.BX), "L2": int(bin_counts.shape[0]), "L3": int(tile_counts.shape[0])},
             "caps": {"col": col_capk, "bin": bin_capk, "tile": capk}}
 
 

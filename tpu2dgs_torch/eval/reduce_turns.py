@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 from pathlib import Path
 
 import torch
@@ -46,16 +45,6 @@ def reduce_probe_f64(base: torch.Tensor, steps: int = reduce_probe.STEPS) -> tor
     return (base.double().sum(dim=0) + reduce_probe.BY) * weight
 
 
-def build_other(source: Path) -> ctypes.CDLL:
-    """OTHER.cu built with the port's flags into a library beside it."""
-    lib = source.with_name(f"lib{source.stem}_other.so")
-    cmd = [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib), str(source)]
-    done = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if done.returncode != 0:
-        raise RuntimeError(f"{source} did not build:\n{done.stdout}{done.stderr}")
-    return ctypes.CDLL(str(lib))
-
-
 def max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(((got.double().cpu() - ref) / ref).abs().max())
 
@@ -63,7 +52,7 @@ def max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 def run(source: Path, steps: int = reduce_probe.STEPS) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the reduction turns time CUDA kernels: they need a GPU")
-    other_lib = build_other(source)
+    other_lib = native.build_other(source)
     base = reduce_probe.probe_input(0, "cuda")
     witness = reduce_probe_f64(base.cpu(), steps)
     plain = reduce_probe.reduce_probe_plain(base, steps)

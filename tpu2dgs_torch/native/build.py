@@ -104,6 +104,20 @@ def build_all(names=SOURCES) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+def build_other(source: Path) -> ctypes.CDLL:
+    """Another version of a csrc/ source, with the headers it includes
+    beside it, built with the port's flags into lib<stem>_other.so beside
+    it (nvcc's report in the .log beside that): the other side of a
+    comparison in turns."""
+    lib = source.with_name(f"lib{source.stem}_other.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(source)]
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if done.returncode != 0:
+        raise RuntimeError(f"{source} did not build:\n{done.stdout}{done.stderr}")
+    lib.with_suffix(".log").write_text(done.stdout + done.stderr)
+    return ctypes.CDLL(str(lib))
+
+
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C launcher `symbol` of csrc/<name>.cu, built on first use."""
     lib = _loaded.get(name)

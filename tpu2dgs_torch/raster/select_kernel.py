@@ -12,6 +12,10 @@ record array the blend kernel reads.
 
 `select_counts` returns only the per-row totals of the same test (the
 counterpart of the TPU kernel `_count_kernel`, csrc/select_counts.cu).
+Its kernel spreads the same (row, chunk) items over the card with no order
+to keep: each walked item counts its chunk, and the item that draws its
+row's last ticket stores the row's sum. `count_plan` is that grid and
+`count_model` the decomposition in plain PyTorch.
 
 `select_values` dispatches by device: a CPU tensor runs
 `select_values_plain` (a vectorized hit matrix + `binning.first_k_hits`),
@@ -30,6 +34,7 @@ tests hold against `select_values_plain`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -329,19 +334,30 @@ _ARGTYPES = [_P] * 10 + [_I] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2 + [
 _OCCUPANCY: dict[int, tuple[int, int]] = {}
 
 
+def _occupancy(cache: dict, source: str, device: torch.device) -> tuple[int, int]:
+    """(SMs, CTAs per SM) from csrc/<source>.cu's <source>_occupancy,
+    queried once per device into `cache`."""
+    idx = device.index or 0
+    if idx not in cache:
+        fn = native.function(source, f"{source}_occupancy",
+                             [_I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+        ctas, sms = ctypes.c_int(), ctypes.c_int()
+        native.check(fn(idx, ctypes.byref(ctas), ctypes.byref(sms)), what=f"{source}_occupancy")
+        cache[idx] = (sms.value, ctas.value)
+    return cache[idx]
+
+
 def kernel_occupancy(device: torch.device) -> tuple[int, int]:
     """(SMs, CTAs per SM) of the select kernel on a CUDA device, queried
     once per device: the cooperative grid may hold at most their product.
     Raises where the device cannot launch cooperative kernels."""
-    idx = device.index or 0
-    if idx not in _OCCUPANCY:
-        fn = native.function("select_values", "select_values_occupancy",
-                             [_I, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
-        ctas, sms = ctypes.c_int(), ctypes.c_int()
-        native.check(fn(idx, ctypes.byref(ctas), ctypes.byref(sms)),
-                     what="select_values_occupancy")
-        _OCCUPANCY[idx] = (sms.value, ctas.value)
-    return _OCCUPANCY[idx]
+    return _occupancy(_OCCUPANCY, "select_values", device)
+
+
+def _test_indices(box_idx, exact_idx):
+    """The launchers' host arrays of tested channels, None for a test left out."""
+    return (None if box_idx is None else (ctypes.c_int * 4)(*box_idx),
+            None if exact_idx is None else (ctypes.c_int * 13)(*exact_idx))
 
 
 def _launch(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
@@ -356,8 +372,7 @@ def _launch(rects, stacked, parent, pcnt, cap, pad_vals, box_idx, exact_idx):
     out = torch.empty((r, n_chan, cap), dtype=torch.float32, device=dev)
     counts = torch.empty((r,), dtype=torch.int32, device=dev)
     scratch = torch.empty((plan.scratch,), dtype=torch.int32, device=dev)
-    box = None if box_idx is None else (ctypes.c_int * 4)(*box_idx)
-    exact = None if exact_idx is None else (ctypes.c_int * 13)(*exact_idx)
+    box, exact = _test_indices(box_idx, exact_idx)
     pads = (ctypes.c_float * n_chan)(*pad_vals)
     fn = native.function("select_values", "select_values_launch", _ARGTYPES)
     native.launch(
@@ -462,10 +477,79 @@ def compaction_model(row_rects, cand_channels, parent_of_row, cap: int,
 # Count-only select: the same hit test, nothing carried.
 # ---------------------------------------------------------------------------
 
-_COUNT_ARGTYPES = [_P] * 8 + [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2 + [_I, _P]
-# Blocks the count kernel aims to keep in flight: a row is split over enough
-# 256-thread blocks to give each of an H100's 132 SMs about four.
-_COUNT_BLOCKS = 4 * 132
+class CountPlan(NamedTuple):
+    """The count kernel's grid for one call."""
+
+    chunks: int   # work items per row: M / CHUNK
+    items: int    # rows x chunks, taken in chunk-major order (`count_items`)
+    ctas: int     # CTAs of the grid: min(items, SMs x CTAs per SM)
+    scratch: int  # int32 words of scratch, uninitialised: one hit count per item
+    tickets: int  # int32 tickets, zero before and after the launch: one per row
+
+
+def count_plan(rows: int, m: int, sms: int, ctas_per_sm: int) -> CountPlan:
+    """The grid the count kernel launches with for R=rows rows of M=m
+    candidates (a multiple of MACRO, as `_prepare` pads them), on a device
+    of `sms` SMs that holds `ctas_per_sm` of its CTAs each
+    (`count_occupancy`). Host-known shapes only: no device value is read."""
+    chunks = m // CHUNK
+    items = rows * chunks
+    return CountPlan(chunks, items, min(items, sms * ctas_per_sm), items, rows)
+
+
+def count_items(plan: CountPlan):
+    """(row, chunk), each (items,) int64: the count kernel's items in the
+    order its CTAs take them, chunk-major (every row's chunk 0 first). CTA
+    b takes positions b, b + ctas, b + 2 ctas, ..."""
+    idx = torch.arange(plan.items)
+    rows = plan.items // plan.chunks
+    return idx % rows, idx // rows
+
+
+class CountModel(NamedTuple):
+    """What `count_model` computes."""
+
+    counts: torch.Tensor     # (R,) int32 TOTAL hits, as select_counts
+    item_hits: torch.Tensor  # (R, chunks) int32: each walked item's hits, the scratch slot
+    tested: torch.Tensor     # (R, M) int32: how many items tested each candidate
+    stores: torch.Tensor     # (R,) int32: how many items stored the row's count
+    tickets: torch.Tensor    # (R,) int32: the tickets after the call
+
+
+def _count_model(rects, stacked, parent, pcnt, box_idx, exact_idx, finish=None):
+    hit = _hits(rects, stacked, parent, box_idx, exact_idx)
+    r, m = hit.shape
+    plan = count_plan(r, m, 1, 1)
+    rows_of, chunks_of = count_items(plan)
+    walked = (_walked(pcnt, m) // CHUNK).tolist()
+    chunk_hits = hit.reshape(r, plan.chunks, CHUNK).sum(dim=2, dtype=torch.int32)
+    counts = torch.full((r,), -1, dtype=torch.int32)  # no count: a row no item stores shows
+    item_hits = torch.zeros((r, plan.chunks), dtype=torch.int32)
+    tested = torch.zeros((r, m), dtype=torch.int32)
+    stores = torch.zeros((r,), dtype=torch.int32)
+    tickets = torch.zeros((r,), dtype=torch.int32)
+    order = (torch.arange(plan.items) if finish is None
+             else torch.randperm(plan.items, generator=finish))
+    for pos in order.tolist():
+        row, ch = int(rows_of[pos]), int(chunks_of[pos])
+        w = walked[row]
+        if ch >= w:  # past the row's walk: only (row, 0) of an empty row stores
+            if ch == 0:
+                counts[row] = 0
+                stores[row] += 1
+            continue
+        tested[row, ch * CHUNK:(ch + 1) * CHUNK] += 1
+        if w == 1:  # the row's only item
+            counts[row] = chunk_hits[row, ch]
+            stores[row] += 1
+            continue
+        item_hits[row, ch] = chunk_hits[row, ch]
+        tickets[row] += 1
+        if int(tickets[row]) == w:  # the last ticket: sum the row's slots, reset
+            counts[row] = item_hits[row, :w].sum(dtype=torch.int32)
+            tickets[row] = 0
+            stores[row] += 1
+    return CountModel(counts, item_hits, tested, stores, tickets)
 
 
 def _count_plain(rects, stacked, parent, pcnt, box_idx, exact_idx):
@@ -473,20 +557,50 @@ def _count_plain(rects, stacked, parent, pcnt, box_idx, exact_idx):
     return torch.sum(hit, dim=1, dtype=torch.int32)
 
 
+_COUNT_ARGTYPES = [_P] * 10 + [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2 + [_I, _P]
+# Per CUDA device index: (SMs, CTAs of the count kernel per SM).
+_COUNT_OCCUPANCY: dict[int, tuple[int, int]] = {}
+# Per (CUDA device index, stream handle): the count kernel's tickets, int32,
+# zero between launches (csrc/select_counts.cu says why one per stream).
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def count_occupancy(device: torch.device) -> tuple[int, int]:
+    """(SMs, CTAs per SM) of the count kernel on a CUDA device, queried
+    once per device: its grid holds at most their product."""
+    return _occupancy(_COUNT_OCCUPANCY, "select_counts", device)
+
+
+def _tickets(device: torch.device, stream: int, rows: int) -> torch.Tensor:
+    """The stream's ticket buffer, at least `rows` long: made with zeros
+    when first needed or outgrown, then left at zero by every launch."""
+    key = (device.index or 0, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = _TICKETS[key] = torch.zeros((rows,), dtype=torch.int32, device=device)
+    return buf
+
+
 def _count_launch(rects, stacked, parent, pcnt, box_idx, exact_idx):
     dev = stacked.device
     r = _check_rows(rects, stacked, parent, pcnt)
     _, n_chan, m = stacked.shape
-    counts = torch.empty((r,), dtype=torch.int32, device=dev)  # the launcher zeroes it
-    box = None if box_idx is None else (ctypes.c_int * 4)(*box_idx)
-    exact = None if exact_idx is None else (ctypes.c_int * 13)(*exact_idx)
-    splits = max(1, min(m // 256, -(-_COUNT_BLOCKS // max(r, 1))))
+    counts = torch.empty((r,), dtype=torch.int32, device=dev)  # one item stores each row
+    if r == 0:
+        return counts
+    if stacked.data_ptr() % 16:
+        stacked = stacked.clone()  # the kernel loads 4 candidates at a time, 16 bytes
+    plan = count_plan(r, m, *count_occupancy(dev))
+    scratch = torch.empty((plan.scratch,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _tickets(dev, stream, plan.tickets)
+    box, exact = _test_indices(box_idx, exact_idx)
     fn = native.function("select_counts", "select_counts_launch", _COUNT_ARGTYPES)
     native.launch(
         fn, stacked.data_ptr(), parent.data_ptr(), pcnt.data_ptr(),
-        *(a.data_ptr() for a in rects), counts.data_ptr(),
-        r, n_chan, m, splits, box, exact, dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream, what="select_counts")
+        *(a.data_ptr() for a in rects), counts.data_ptr(), scratch.data_ptr(),
+        tickets.data_ptr(), r, n_chan, m, plan.ctas, box, exact, dev.index or 0, stream,
+        what="select_counts")
     return counts
 
 
@@ -529,3 +643,19 @@ def select_counts_plain(row_rects, cand_channels, parent_of_row, parent_counts=N
     """The plain PyTorch version of `select_counts`, on any device."""
     return _count(_count_plain, row_rects, cand_channels, parent_of_row, parent_counts,
                   pad_vals, box_idx, exact_idx)
+
+
+def count_model(row_rects, cand_channels, parent_of_row, parent_counts=None, pad_vals=None,
+                box_idx=(0, 1, 2, 3), exact_idx: tuple | None = None,
+                finish: torch.Generator | None = None) -> CountModel:
+    """The count kernel's decomposition in plain PyTorch, with
+    `select_counts`' arguments: each (row, chunk of CHUNK candidates) item
+    of `count_items` tests its slice of the walk; a row that walks one chunk
+    stores its count there, the others store each item's count in a
+    scratch slot and take a ticket, and the item that draws the row's last
+    ticket stores the row's sum and resets the ticket; (row, 0) of a row
+    that walks nothing stores 0. Items take their tickets in launch order,
+    or in a random order drawn from the generator `finish`. `counts` equals
+    `select_counts_plain`'s."""
+    return _count(functools.partial(_count_model, finish=finish), row_rects, cand_channels,
+                  parent_of_row, parent_counts, pad_vals, box_idx, exact_idx)
