@@ -24,6 +24,18 @@ main path:
            through render(mesh=) and Trainer(mesh=), against one rank, K1
            3 / K2 1 / K3 1 launches per rank and step. Two ranks on one
            card check results; they measure no scaling.
+  splats   splat sharding on the shell, two ranks sharing the card over
+           gloo, each holding half of the splats: render(mesh=,
+           shard_splats=True) and its gradients for static strips and work
+           windows with the all-gather and the routed exchange against one
+           rank's render, a routed render whose messages overflow (its
+           counter against the demand counted from the boxes), and
+           Trainer(mesh=, shard_splats=True) steps through a densification
+           round (held against densify_and_prune(segments=2) of the
+           gathered state) and a segmented growth; K1 3 / K2 1 / K3 1
+           launches per rank and render or step, each rank at half the
+           capacity; each rank's peak device memory over 3 steps against
+           one rank's, run in a process of its own. It measures no scaling.
   cli      the shell training set written to disk as a COLMAP dataset,
            cli.train from a fresh start with its ground truth kept on the
            host, a resume from its checkpoint at full width, cli.render
@@ -54,7 +66,8 @@ with its launches, times and bound, and the last line is
 Any failed check exits nonzero before that line. Needs a CUDA device, nvcc
 and g++; imports nothing of JAX. `python3 chip_smoke.py kernels` stops
 after the kernel checks, and `python3 chip_smoke.py rows` runs the build
-and the rows phase alone; neither prints a verdict.
+and the rows phase alone, `python3 chip_smoke.py splats` the build and the
+splats phase alone; none of them prints a verdict.
 """
 
 from __future__ import annotations
@@ -111,6 +124,14 @@ GT_CAPS = dict(bin_capacity=20480, tile_capacity=10240, col_capacity=61440)
 ROWS_SPLITS = (2, 4, 8)
 ROWS_RANKS = 2
 ROWS_STEPS = 4
+# The splats phase: two ranks sharing the card, each holding half of the
+# shell's 131,072 splats (k_loc 65,536 survivors a rank); a routed exchange
+# at a cap small enough to overflow; SPLAT_STEPS Trainer steps with one
+# densification round (after step 4) that grows the capacity.
+SPLAT_RANKS = 2
+SPLAT_XFER_SMALL = 4096
+SPLAT_STEPS = 6
+SPLAT_ROUTED_TOL = 1e-5  # routed renders against the all-gather ones, max |d|
 TRAIN_STEPS = 24
 TRAIN_VIEWS = 4  # one epoch of the camera shuffle: first and last 4 steps see every view
 # The command-line phase: 4 views on disk (3 to train on, 1 held out), a
@@ -1674,6 +1695,186 @@ def rows_phase() -> dict:
     return dict(launches), blend, bwd
 
 
+def splats_phase() -> dict:
+    """Splat-sharded rendering and training on the 800x800 shell at the
+    ground truth's capacities (no list overflows): two ranks sharing
+    cuda:0 over gloo, each holding its half of the splat rows, against one
+    rank. Returns the two ranks' launches (each render and step counted
+    from zero in its rank)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    d = SPLAT_RANKS
+    n_loc = N_SPLATS // d
+    k_loc = n_loc  # no vis_capacity: every rank keeps all its rows' survivors
+    cam_obj = synthetic.shell_camera(2 * np.pi * 0.13, W, H)
+    _, scene = synthetic.make_shell_scene(W, H, N_SPLATS)
+    scene_np = tuple(a.cpu().numpy() for a in scene)
+    bg_np = np.zeros(3, np.float32)
+    modes = {f"{rb} {'routed' if x else 'all-gather'}":
+             api.RasterSettings(W, H, **GT_CAPS, row_balance=rb, xfer_capacity=x)
+             for rb in ("static", "work") for x in (0, k_loc)}
+    small = api.RasterSettings(W, H, **GT_CAPS, row_balance="static",
+                               xfer_capacity=SPLAT_XFER_SMALL)
+    cams, model = synthetic.make_shell_training_set(W, H, N_SPLATS, views=TRAIN_VIEWS,
+                                                   **GT_CAPS)
+    start = rehearsal.model_arrays(model)
+    del model
+    cfg = dict(normal_from_iter=0, dist_from_iter=0, lambda_dist=100.0,
+               densification_interval=4, grow_watermark=0.5)
+    kw = dict(spatial_lr_scale=1.0, scene_extent=1.0, raster_kwargs=dict(GT_CAPS))
+    sharded_kw = dict(kw, shard_splats=True,
+                      train_cfg=loop.TrainConfig(densify_from_iter=2, **cfg))
+    t0 = time.perf_counter()
+    both = distributed.spawn(
+        rehearsal.each, d,
+        args=([(rehearsal.render_rank, (cam_obj, [*modes.values(), small], scene_np, bg_np,
+                                        False, True)),
+               (rehearsal.train_rank, (start, cams, W, H, (3, SPLAT_STEPS), sharded_kw, 3))],),
+        device=[dev] * d, timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    ranks, trained = zip(*both)
+    one = rehearsal.render_once(cam_obj, api.RasterSettings(W, H, **GT_CAPS), scene_np, bg_np,
+                                dev)
+
+    launches = Counter()
+    per_render = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
+    rendered = {}
+    for i, (name, s) in enumerate(modes.items()):
+        got = [r[i] for r in ranks]
+        for g in got:
+            if g["launches"] != per_render:
+                fail(f"splats: a rank's render ({name}) launched {g['launches']}, want "
+                     f"{per_render}")
+            launches.update(g["launches"])
+        err = {k: float(np.abs(got[0][k] - one[k]).max()) for k in rehearsal.KEYS}
+        ovf = {k: float(got[0][k].max()) for k in FIRES if float(got[0][k].max()) > 0}
+        radii = np.concatenate([g["radii"] for g in got])
+        if max(err.values()) > RENDER_TOL or ovf or not np.array_equal(radii, one["radii"]):
+            fail(f"splats: two-rank render ({name}) against one rank: {err}, counters fired: "
+                 f"{ovf}, radii equal: {np.array_equal(radii, one['radii'])}")
+        if any(not np.array_equal(got[0][k], got[1][k]) for k in rehearsal.KEYS):
+            fail(f"splats: the two ranks' images differ ({name})")
+        grad = {}
+        for p in rehearsal.PARAMS:
+            a, b = np.concatenate([g[f"grad_{p}"] for g in got]), one[f"grad_{p}"]
+            grad[p] = {"max_abs_err": float(np.abs(a - b).max()),
+                       "grad_max": float(np.abs(b).max())}
+        floor = GRAD_FLOOR * max(v["grad_max"] for v in grad.values())
+        bad = {k: v for k, v in grad.items()
+               if not v["max_abs_err"] <= max(GRAD_TOL * v["grad_max"], floor)}
+        if bad:
+            fail(f"splats: two-rank gradients ({name}) against one rank: {grad}")
+        rendered[name] = {"max_abs_err": err, "grad": grad,
+                          "seconds": [g["seconds"] for g in got],
+                          "strip_rows": got[0]["strip_rows"].tolist(),
+                          "strip_work": got[0]["strip_work"].tolist()}
+        if s.xfer_capacity:
+            gathered = ranks[0][list(modes).index(name.replace("routed", "all-gather"))]
+            routed_err = max(float(np.abs(got[0][k] - gathered[k]).max()) for k in rehearsal.KEYS)
+            if routed_err > SPLAT_ROUTED_TOL or float(got[0]["xfer_overflow_frac"]) != 0.0:
+                fail(f"splats: routed render ({name}) against the all-gather one: {routed_err}, "
+                     f"xfer_overflow_frac {float(got[0]['xfer_overflow_frac'])}")
+            rendered[name].update(routed_vs_all_gather=routed_err,
+                                  xfer_count_max=float(got[0]["xfer_count_max"]))
+
+    # The overflowing exchange: each rank's message demand on each static
+    # strip, counted from its survivors' boxes.
+    got = [r[len(modes)] for r in ranks]
+    for g in got:
+        launches.update(g["launches"])
+    nty = -(-H // cuda_backend.BY)
+    rows_per = sharded._strip_rows(H, cuda_backend.BY, cuda_backend.CBY, d)
+    bnd = [min(k * rows_per, nty) * cuda_backend.BY for k in range(d + 1)]
+    demand = []
+    with torch.no_grad():
+        arrays = [torch.as_tensor(a, device=dev) for a in scene_np]
+        for r in range(d):
+            rows = [a[r * n_loc:(r + 1) * n_loc] for a in arrays]
+            sp = preprocess.preprocess(rows[0], rows[1], rows[2], rows[3].reshape(-1), rows[4],
+                                       cam_obj.arrays(dev), W, H, 3)
+            comp = binning.compact_visible(sp, k_loc)
+            demand.append([int(torch.sum(comp.valid & (comp.y0 <= bnd[k + 1] - 1)
+                                         & (comp.y1 >= bnd[k]))) for k in range(d)])
+    want_frac = max(float(np.mean(np.array(row) > SPLAT_XFER_SMALL)) for row in demand)
+    overflow = {"xfer_capacity": SPLAT_XFER_SMALL, "demand": demand,
+                "xfer_count_max": float(got[0]["xfer_count_max"]),
+                "xfer_overflow_frac": float(got[0]["xfer_overflow_frac"])}
+    if not (overflow["xfer_overflow_frac"] > 0 and overflow["xfer_overflow_frac"] == want_frac
+            and overflow["xfer_count_max"] == max(map(max, demand))):
+        fail(f"splats: overflow counters {overflow} against the demand from the boxes")
+
+    # One rank's training in a process of its own, as each sharded rank is,
+    # so the peaks compare like for like (both from the start of the run).
+    t0 = time.perf_counter()
+    (alone,), = distributed.spawn(
+        rehearsal.each, 1,
+        args=([(rehearsal.train_alone, (start, cams, W, H, (3, 4), dict(
+            kw, train_cfg=loop.TrainConfig(densify_from_iter=10_000, **cfg)), 3))],),
+        device=[dev], timeout_s=300)
+    alone_s = time.perf_counter() - t0
+    per_step = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
+    for r in trained:
+        if r["launches"] != [per_step] * SPLAT_STEPS:
+            fail(f"splats: a rank's Trainer steps launched {r['launches']}, want {per_step} "
+                 "each")
+        for step in r["launches"]:
+            launches.update(step)
+        for stop in r["stops"]:
+            if stop["rows"] != [stop["capacity"] // d]:
+                fail(f"splats: a rank holds {stop['rows']} rows at step {stop['step']} of a "
+                     f"capacity of {stop['capacity']}")
+    rounds = trained[0]["rounds"]  # rank 0 holds the gathered states
+    if [len(r["rounds"]) for r in trained] != [1] * d or not all(
+            x["live_equal"] and x["adam_equal"] and x["params_rel_err"] <= 1e-6
+            for x in rounds):
+        fail(f"splats: densification rounds against densify_and_prune(segments={d}): "
+             f"{rounds}")
+    first, last = trained[0]["stops"]
+    if not last["capacity"] > first["capacity"]:
+        fail(f"splats: no growth: capacity {first['capacity']} -> {last['capacity']}")
+    loss = np.array(trained[0]["loss"][:4])
+    ref = np.array(alone["loss"])
+    if trained[0]["loss"] != trained[1]["loss"] or not np.allclose(loss, ref, rtol=2e-3,
+                                                                    atol=0.0):
+        fail(f"splats: two-rank losses {[r['loss'] for r in trained]} against one rank {ref}")
+    # Peak device memory over the first 3 steps (no densification yet):
+    # each rank against one rank, both measured from the start of their run.
+    peaks = [r["stops"][0]["max_memory_allocated"] for r in trained]
+    one_peak = alone["stops"][0]["max_memory_allocated"]
+    # Bytes each rank's exchange moves per view, from the shapes: a record
+    # is 24 float32, its depth and packed boxes 3 float64.
+    rec_b, meta_b = 24 * 4, 3 * 8
+    exchange = {"all_gather_bytes": d * k_loc * (rec_b + meta_b),
+                "reduce_scatter_bytes": d * k_loc * rec_b,
+                "routed_bytes": d * cuda_backend._round128(k_loc) * (rec_b + meta_b),
+                "routed_backward_bytes": d * cuda_backend._round128(k_loc) * rec_b,
+                "routed_small_bytes": d * SPLAT_XFER_SMALL * (rec_b + meta_b),
+                "window_boxes_bytes": d * k_loc * 2 * 8,
+                "image_rows_bytes": {name: d * max(v["strip_rows"]) * -(-W // cuda_backend.BX)
+                                     * cuda_backend.BX * 10 * 4
+                                     for name, v in rendered.items()}}
+    emit({"phase": "splats", "card": card(), "ranks": d, "backend": "gloo on cuda:0",
+          "splats": N_SPLATS, "k_loc": k_loc, "capacities": GT_CAPS,
+          "ranks_seconds": ranks_s, "render": rendered, "overflow": overflow,
+          "one_rank_render_seconds": one["seconds"], "exchange": exchange,
+          "train_steps": SPLAT_STEPS, "loss": trained[0]["loss"], "loss_one_rank": alone["loss"],
+          "rounds": rounds,
+          "capacity": [s["capacity"] for s in trained[0]["stops"]],
+          "rank_rows": [[s["rows"] for s in r["stops"]] for r in trained],
+          "rank_state_bytes": [[s["state_bytes"] for s in r["stops"]] for r in trained],
+          "one_rank_state_bytes": alone["stops"][0]["state_bytes"],
+          "rank_ms_per_step": [[s["ms_per_step"] for s in r["stops"]] for r in trained],
+          "one_rank_ms_per_step": alone["stops"][0]["ms_per_step"],
+          "rank_max_memory_allocated": [[s["max_memory_allocated"] for s in r["stops"]]
+                                        for r in trained],
+          "one_rank_max_memory_allocated": [s["max_memory_allocated"] for s in alone["stops"]],
+          "peak_ratio_3_steps": max(peaks) / one_peak, "one_rank_seconds": alone_s,
+          "launches_per_rank": trained[0]["launches"][0],
+          "scaling": "none measured: two ranks share one card",
+          "seconds": time.perf_counter() - t_phase})
+    return dict(launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1707,6 +1908,9 @@ def main() -> None:
 
     if sys.argv[1:] == ["rows"]:
         rows_phase()  # `python3 chip_smoke.py rows`: build and the rows phase, no verdict
+        return
+    if sys.argv[1:] == ["splats"]:
+        splats_phase()  # `python3 chip_smoke.py splats`: build and the splats phase, no verdict
         return
     settings = api.RasterSettings(W, H, **CAPS)
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)
@@ -1744,6 +1948,9 @@ def main() -> None:
     rows_launches, blend_row0, bwd_row0 = rows_phase()
     rows_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    splat_launches = splats_phase()
+    splats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cli_launches, mesh_s = cli(out_dir)
     cli_s = time.perf_counter() - t0 - mesh_s
     t0 = time.perf_counter()
@@ -1753,14 +1960,14 @@ def main() -> None:
     gate_launches = quality_gate_phase(out_dir)
     gate_s = time.perf_counter() - t0
     emit({"phase": "seconds", "probe": probe_s, "serve": serve_s, "train": train_s,
-          "rows": rows_s, "cli": cli_s, "mesh": mesh_s, "backends": backends_s,
+          "rows": rows_s, "splats": splats_s, "cli": cli_s, "mesh": mesh_s, "backends": backends_s,
           "quality_gate": gate_s,
           "total": time.perf_counter() - t_start})
 
     def launched(name):  # cli_launches holds the mesh phase's
         return sum(ph.get(name, 0) for ph in (probe_launches, launches, train_launches,
-                                              rows_launches, cli_launches, backend_launches,
-                                              gate_launches))
+                                              rows_launches, splat_launches, cli_launches,
+                                              backend_launches, gate_launches))
 
     emit({"kernels": [
         {"name": "select_values", "route": "cuda",

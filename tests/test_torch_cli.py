@@ -121,14 +121,14 @@ def test_parsers_accept_the_jax_flags():
 
 
 def test_unported_arguments_raise(tmp_path, monkeypatch):
-    """--shard_mode splats is the next multi-device slice; --n_devices N
-    (tile rows) runs (tests/test_torch_sharded.py), and refuses what it
-    cannot run before anything is written: more ranks than GPUs, and 0
-    (every GPU) on the CPU."""
+    """--n_devices N runs (tile rows, tests/test_torch_sharded.py; splats,
+    tests/test_torch_splat_sharded.py) and refuses what it cannot run
+    before anything is written: more ranks than GPUs, 0 (every GPU) on the
+    CPU, and splat sharding off the cuda backend."""
     base = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--disable_viewer"]
-    for extra in (["--shard_mode", "splats"], ["--n_devices", "2", "--shard_mode", "splats"]):
-        with pytest.raises(NotImplementedError, match="next multi-device slice"):
-            tcli_train.main(base + extra, device="cpu")
+    with pytest.raises(ValueError, match="--shard_mode splats needs the cuda backend"):
+        tcli_train.main(base + ["--n_devices", "2", "--shard_mode", "splats", "--backend",
+                                "tiled"], device="cpu")
     with pytest.raises(ValueError, match="counts GPUs"):
         tcli_train.main(base + ["--n_devices", "0"], device="cpu")
     with pytest.raises(RuntimeError, match="CUDA device"):
@@ -139,6 +139,13 @@ def test_unported_arguments_raise(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="2 ranks need 2 GPUs; this host has 1"):
             tcli_train.main(base + ["--n_devices", "2"])
     assert not (tmp_path / "out").exists()  # refused before anything was written
+    # --shard_mode splats with one rank trains unsharded, as in the JAX package
+    scene = tmp_path / "scene"
+    scene.mkdir()
+    _make_colmap_dataset(str(scene), n_views=6, n_pts=40)
+    one = tcli_train.main(["-s", str(scene), "-m", str(tmp_path / "one"), "--shard_mode",
+                           "splats", *TRAIN_FLAGS, "--iterations", "1"], device="cpu")
+    assert one.step == 1 and not one.shard_splats and one.model.capacity == 4096
     assert tcli_convert.main.__defaults__ == (None, None)  # main(argv=None, device=None)
 
 

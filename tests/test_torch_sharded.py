@@ -96,7 +96,7 @@ def test_sharded_render_matches_jax_and_one_device(renders, mode):
     r = renders[mode]
     got, one, want = r["ranks"][0], r["one"], r["jax"]
     for k, v in got.items():
-        if k != "launches":
+        if k not in ("launches", "seconds"):
             np.testing.assert_array_equal(r["ranks"][1][k], v, err_msg=f"ranks differ: {k}")
     for k in rehearsal.KEYS:
         np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-4, err_msg=k)
@@ -193,3 +193,23 @@ def test_cli_train_two_ranks_writes_one_model(tmp_path):
     # steps either way: tests/test_multichip_train.py's long-horizon rule
     diff = np.abs(m.xyz.detach().numpy()[:40] - single.model.xyz.detach().numpy()[live])
     assert float(np.quantile(diff, 0.95)) < 5e-3, float(diff.max())
+
+
+def test_launched_rank_joins_on_the_callers_device(monkeypatch):
+    """Under a launcher (WORLD_SIZE > 1), initialize(device) takes the
+    device the caller resolved: gloo for the CPU even where there is a GPU,
+    NCCL on cuda:LOCAL_RANK otherwise."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: seen.append(("set_device", d)))
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: seen.append((backend, kw["rank"],
+                                                           kw["world_size"])))
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "1"), ("LOCAL_RANK", "1")):
+        monkeypatch.setenv(k, v)
+    distributed.initialize(torch.device("cpu"))
+    assert seen == [("gloo", 1, 2)]
+    seen.clear()
+    distributed.initialize(torch.device("cuda"))
+    assert seen == [("set_device", torch.device("cuda", 1)), ("nccl", 1, 2)]

@@ -179,8 +179,9 @@ def test_create_from_pcd_and_grow_capacity_match_jax():
     tg = tsplats.grow_capacity(tm, 96)
     _assert_same_model(tg, jsplats.grow_capacity(jm, 96))
     assert tg.capacity == 96 and tsplats.grow_capacity(tm, 64) is tm
-    with pytest.raises(NotImplementedError):
-        tsplats.grow_capacity(tm, 128, segments=2)
+    # two segments: each keeps its rows and gains half the new ones
+    _assert_same_model(tsplats.grow_capacity(tm, 128, segments=2),
+                       jsplats.grow_capacity(jm, 128, segments=2))
 
 
 def _stats_pair(seed=3, n=40, c=64):
@@ -226,6 +227,9 @@ def test_densify_and_prune_matches_jax(case):
     key = jax.random.PRNGKey(9)
     eps = np.asarray(jax.random.normal(key, (2, c, 2), jnp.float32))
     use_size = case == "size_prune"
+    # the port changes the moments in place: a copy for the segmented round
+    at_seg = toptim.AdamState(at.count, *(tsplats.SplatParams(*(a.clone() for a in m))
+                                          for m in (at.mu, at.nu)))
     jm2, aj2, ij = jdensify.densify_and_prune(jdensify.DensifyConfig(), jm, aj, key, 3.0, use_size)
     tm2, at2, it = tdensify.densify_and_prune(tdensify.DensifyConfig(), tm, at, None, 3.0,
                                               use_size, eps=to_torch(eps))
@@ -237,9 +241,17 @@ def test_densify_and_prune_matches_jax(case):
     for name in FIELDS:
         np.testing.assert_array_equal(_np(getattr(at2.mu, name)), _np(getattr(aj2.mu, name)))
         np.testing.assert_array_equal(_np(getattr(at2.nu, name)), _np(getattr(aj2.nu, name)))
-    with pytest.raises(NotImplementedError):
-        tdensify.densify_and_prune(tdensify.DensifyConfig(), tm, at, None, 3.0, False,
-                                   segments=2)
+    # two segments, each compacting its children into its own free slots
+    jm3, aj3, ij3 = jdensify.densify_and_prune(jdensify.DensifyConfig(), jm, aj, key, 3.0,
+                                               use_size, segments=2)
+    tm3, at3, it3 = tdensify.densify_and_prune(tdensify.DensifyConfig(), tm, at_seg, None,
+                                               3.0, use_size, segments=2, eps=to_torch(eps))
+    for k in ij3._fields:
+        assert int(getattr(it3, k)) == int(getattr(ij3, k)), k
+    _assert_same_model(tm3, jm3)
+    for name in FIELDS:
+        np.testing.assert_array_equal(_np(getattr(at3.mu, name)), _np(getattr(aj3.mu, name)))
+        np.testing.assert_array_equal(_np(getattr(at3.nu, name)), _np(getattr(aj3.nu, name)))
     # drawing the noise from a generator is reproducible from its seed
     runs = [tdensify.densify_and_prune(tdensify.DensifyConfig(), tm, at,
                                        torch.Generator().manual_seed(1), 3.0, False)[0]
@@ -472,14 +484,15 @@ def test_trainer_profile_window_writes_a_trace(trainers, tmp_path):
 
 
 def test_trainer_refuses_unported_modes(trainers):
-    """Splat sharding and the viewer are not ported; a mesh must be the
-    port's (tile-row training is held to one device in
-    tests/test_torch_sharded.py)."""
+    """The viewer is not ported; a mesh must be the port's (tile-row and
+    splat-sharded training are held to one device in
+    tests/test_torch_sharded.py and tests/test_torch_splat_sharded.py)."""
     _, tt, _, _ = trainers
-    for kw in (dict(shard_splats=True), dict(gui=object())):
-        with pytest.raises(NotImplementedError):
-            tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, **kw)
-    with pytest.raises(NotImplementedError, match="next multi-device slice"):
-        tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, shard_splats=True)
+    with pytest.raises(NotImplementedError, match="viewer"):
+        tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, gui=object())
+    # without a mesh, shard_splats is ignored, as in the JAX package
+    tr = tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, shard_splats=True)
+    assert not tr.shard_splats and tr.model is tt.model and tr.capacity() == tt.model.capacity
+    assert tr.whole_state() == (tr.model, tr.adam)
     with pytest.raises(TypeError):
         tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, mesh=object())

@@ -9,15 +9,22 @@ plain versions on the CPU, as the tests do; there is no flag for it.
 `--n_devices N` (N > 1; 0 = every GPU) splits each view's tile rows over N
 ranks, one process per GPU (`--shard_mode rows`, parallel/sharded.py): the
 run spawns ranks on cuda:0 .. cuda:N-1, and raises when the host has fewer
-GPUs. Started by a launcher that set WORLD_SIZE, RANK, MASTER_ADDR and
-MASTER_PORT (torchrun), it joins that group instead, one rank per process.
-From Python with device="cpu" it runs N gloo ranks on the CPU. Rank 0
-alone logs and writes the model directory.
+GPUs. `--shard_mode splats` splits the splats as well: each rank keeps
+1/N of the model, its Adam state and its statistics (the cuda backend;
+with one device it trains unsharded). Started by a launcher that set
+WORLD_SIZE, RANK, MASTER_ADDR and MASTER_PORT (torchrun), or called in a
+rank of a group already made (`parallel.distributed.spawn`), it trains in
+that group instead, one rank per process. From Python with device="cpu" it
+runs N gloo ranks on the CPU. Rank 0 alone logs and writes the model
+directory. Under splat sharding the whole model lies on a device at no
+point: it is made (or a resume loads it) in host memory, and each rank
+keeps its segment; every rank renders the test views together; at each
+save and checkpoint iteration the segments are gathered into rank 0's
+host memory, written and released.
 
-Not ported yet, and said so rather than passed over: `--shard_mode splats`
-raises NotImplementedError (the next multi-device slice); the training
-viewer is absent, so without `--disable_viewer` the run prints that and
-goes on without one.
+Not ported yet, and said so rather than passed over: the training viewer
+is absent, so without `--disable_viewer` the run prints that and goes on
+without one.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import torch
 
 from tpu2dgs_torch import default_device
 from tpu2dgs_torch.cli import config as cfg_lib
-from tpu2dgs_torch.parallel import distributed
+from tpu2dgs_torch.parallel import distributed, sharded
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
         "this directory (a Chrome trace)")
     parser.add_argument(
         "--shard_mode", choices=("rows", "splats"), default="rows",
-        help="multi-device mode; only 'rows' (tile rows) is ported")
+        help="multi-device mode: 'rows' splits each view's tile rows over the ranks, "
+        "'splats' the splats as well (1/N of the model a rank; cuda backend)")
     return parser
 
 
@@ -83,8 +91,8 @@ def _ranks(n_devices: int, dev: torch.device) -> tuple[int, bool]:
     spawning its own."""
     if n_devices < 0:
         raise ValueError(f"--n_devices {n_devices}: give 0 (every GPU) or a count")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        distributed.initialize()
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or torch.distributed.is_initialized():
+        distributed.initialize(dev)  # a no-op in a group already made
         world = torch.distributed.get_world_size()
         if n_devices not in (0, 1, world):  # 1, the default, defers to the launcher
             raise ValueError(f"--n_devices {n_devices} in a launched group of {world} ranks")
@@ -109,14 +117,13 @@ def main(argv=None, device=None):
     pipe_p = cfg_lib.extract(cfg_lib.PipelineParams, args)
     raster_p = cfg_lib.extract(cfg_lib.RasterParams, args)
     raster_p.backend = cfg_lib.port_backend(raster_p.backend)
-    if args.shard_mode == "splats":
-        raise NotImplementedError(
-            "--shard_mode splats: splat sharding is not ported yet (it comes with the next "
-            "multi-device slice); run with --shard_mode rows")
     dev = default_device(device)
     n_ranks, joined = _ranks(args.n_devices, dev)
     if n_ranks > 1 and raster_p.backend == "oracle":
         raise ValueError("--backend oracle has no sharded form: train it with --n_devices 1")
+    if n_ranks > 1 and args.shard_mode == "splats" and raster_p.backend != "cuda":
+        raise ValueError(f"--shard_mode splats needs the cuda backend, not "
+                         f"--backend {raster_p.backend}")
 
     if not model_p.model_path:
         model_p.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
@@ -126,13 +133,14 @@ def main(argv=None, device=None):
         cfg_lib.save_cfg_args(model_p.model_path, args)
         print(f"Output folder: {model_p.model_path}")
         if n_ranks > 1:
-            print(f"Sharding tile rows over {n_ranks} ranks")
+            mode = "splats and tile rows" if args.shard_mode == "splats" else "tile rows"
+            print(f"Sharding {mode} over {n_ranks} ranks")
 
     if n_ranks > 1 and not joined:
         distributed.spawn(_train_rank, n_ranks, args=(model_p, opt_p, pipe_p, raster_p, args),
                           device=dev.type, timeout_s=None)
         return None
-    mesh = distributed.make_mesh(n_ranks) if joined else None
+    mesh = distributed.make_mesh(n_ranks, dev) if joined else None
     return run_training(model_p, opt_p, pipe_p, raster_p, args,
                         mesh.device if mesh is not None else dev, mesh)
 
@@ -194,8 +202,7 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
         scaling_lr=opt_p.scaling_lr,
         rotation_lr=opt_p.rotation_lr,
     )
-    # Every knob a backend reads; xfer_capacity (splat sharding) parses and
-    # is not passed on.
+    # Every knob a backend reads.
     raster_kwargs = dict(
         backend=raster_p.backend, tile_px=raster_p.tile_px,
         coarse_tiles=raster_p.coarse_tiles,
@@ -204,20 +211,25 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
         col_capacity=raster_p.col_capacity,
         vis_capacity=raster_p.vis_capacity,
         grad_pack_capacity=raster_p.grad_pack_capacity,
+        xfer_capacity=raster_p.xfer_capacity,
         chunk=raster_p.chunk,
         row_balance=raster_p.row_balance,
         depth_ratio=pipe_p.depth_ratio,
     )
 
+    # Under splat sharding the whole model lies in host memory until the
+    # Trainer keeps this rank's segment of it on the device.
+    split = mesh is not None and args.shard_mode == "splats"
+    whole_on = torch.device("cpu") if split else device
     start_step = 0
     if args.start_checkpoint:
         model, adam, start_step, _ = ckpt_lib.load_checkpoint(args.start_checkpoint,
-                                                              device=device)
+                                                              device=whole_on)
         if primary:
             print(f"Resumed from {args.start_checkpoint} at step {start_step}")
     else:
         model = splats_lib.create_from_pcd(
-            scene.points, scene.colors, sh_degree=model_p.sh_degree, device=device)
+            scene.points, scene.colors, sh_degree=model_p.sh_degree, device=whole_on)
         adam = None
 
     # Rank 0 alone logs and writes; the others train alike beside it.
@@ -242,7 +254,8 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
         white_background=model_p.white_background,
         max_sh_degree=model_p.sh_degree, seed=args.seed,
         log_fn=log_fn if primary else None, max_capacity=args.max_capacity,
-        mesh=mesh, profile_dir=args.profile_dir or None,
+        mesh=mesh, shard_splats=args.shard_mode == "splats",
+        profile_dir=args.profile_dir or None,
         gt_cache_mb=args.gt_cache_mb,
     )
     if not args.disable_viewer and primary:
@@ -250,10 +263,13 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
               "continuing without")
 
     if args.start_checkpoint and adam is not None:
+        if trainer.shard_splats:  # the whole checkpoint on every rank: keep the segment
+            _, adam = sharded.shard_model_state(model, adam, mesh)
         trainer.adam = adam
         trainer.step = start_step
         trainer.active_sh_degree = min(
             start_step // train_cfg.sh_increment_interval, model_p.sh_degree)
+    del model, adam  # under splat sharding the whole: the Trainer keeps its segment
 
     save_set = set(args.save_iterations)
     test_set = set(args.test_iterations)
@@ -275,32 +291,43 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
                 n = min(boundaries) - trainer.step
             trainer.train(num_iters=n, progress=not args.quiet and primary)
             it = trainer.step
-            if not primary:
-                continue
-
-            if it in test_set:
+            if it in test_set and (primary or trainer.shard_splats):  # every rank renders
                 _test_report(trainer, scene, logger, losses, it, min(test_set))
-            if it in save_set:
-                out_dir = os.path.join(model_p.model_path, "point_cloud", f"iteration_{it}")
-                os.makedirs(out_dir, exist_ok=True)
-                splats_lib.save_ply(trainer.model, os.path.join(out_dir, "point_cloud.ply"))
-                print(f"[ITER {it}] saved point cloud")
-            if it in ckpt_set:
-                ckpt_lib.save_checkpoint(
-                    os.path.join(model_p.model_path, f"chkpnt{it}.npz"),
-                    trainer.model, trainer.adam, it)
-                print(f"[ITER {it}] saved checkpoint")
+            if it in save_set | ckpt_set:
+                _write(trainer, it, it in save_set, it in ckpt_set, model_p.model_path)
 
     if primary:
         print("Training complete.")
     return trainer
 
 
+def _write(trainer, it: int, save: bool, checkpoint: bool, model_path: str) -> None:
+    """Rank 0 writes the whole model's PLY and/or checkpoint at iteration
+    `it`. Under splat sharding every rank calls it: the whole model is
+    gathered into rank 0's host memory and released when written."""
+    from tpu2dgs_torch.model import splats as splats_lib
+    from tpu2dgs_torch.train import checkpoint as ckpt_lib
+
+    model, adam = trainer.whole_state()
+    if not distributed.is_primary():
+        return
+    if save:
+        out_dir = os.path.join(model_path, "point_cloud", f"iteration_{it}")
+        os.makedirs(out_dir, exist_ok=True)
+        splats_lib.save_ply(model, os.path.join(out_dir, "point_cloud.ply"))
+        print(f"[ITER {it}] saved point cloud")
+    if checkpoint:
+        ckpt_lib.save_checkpoint(os.path.join(model_path, f"chkpnt{it}.npz"), model, adam, it)
+        print(f"[ITER {it}] saved checkpoint")
+
+
 @torch.no_grad()
 def _test_report(trainer, scene, logger, losses, it: int, first_test_it: int) -> None:
     """The reference's training_report: L1 and PSNR of the test set and of
     a fixed slice of the train views, image panels of the first 5 views of
-    each, the opacity histogram and the number of points."""
+    each, the opacity histogram and the number of points, logged by rank 0
+    (`logger` None elsewhere). Under splat sharding every rank calls it and
+    renders each view with the others."""
     n_train = len(scene.train_cameras)
     configs = [
         ("test", scene.test_cameras),
@@ -312,6 +339,8 @@ def _test_report(trainer, scene, logger, losses, it: int, first_test_it: int) ->
         l1s, psnrs = [], []
         for j, cam in enumerate(cams):
             out = trainer.render_view(cam)
+            if logger is None:
+                continue
             img = torch.clamp(out["render"], 0, 1)
             gtimg = torch.clamp(torch.from_numpy(np.asarray(cam.image, np.float32))
                                 .to(img.device), 0, 1)
@@ -323,16 +352,25 @@ def _test_report(trainer, scene, logger, losses, it: int, first_test_it: int) ->
                                    for k, v in logger.render_panels(out).items()})
                 if it == first_test_it:
                     logger.images(it, {f"{prefix}/ground_truth": gtimg})
+        if logger is None:
+            continue
         l1_m, psnr_m = float(np.mean(l1s)), float(np.mean(psnrs))
         print(f"\n[ITER {it}] Evaluating {name}: L1 {l1_m:.5f} PSNR {psnr_m:.2f}")
         logger.scalars(it, {
             f"{name}/loss_viewpoint - l1_loss": l1_m,
             f"{name}/loss_viewpoint - psnr": psnr_m,
         })
-    model = trainer.model
-    opac = torch.sigmoid(model.params.opacity[:, 0])[model.live]
+    # the live splats' opacities: under splat sharding every rank's, at rank 0
+    m = trainer.model
+    opac_live = torch.stack([torch.sigmoid(m.params.opacity[:, 0]), m.live.float()], 1)
+    if trainer.shard_splats:
+        segs = distributed.gather_to_host(trainer.mesh, opac_live)
+        opac_live = None if segs is None else torch.cat(segs)
+    if logger is None:
+        return
+    opac = opac_live[:, 0][opac_live[:, 1] > 0]
     logger.histogram(it, "scene/opacity_histogram", opac)
-    logger.scalars(it, {"total_points": int(model.num_live())})
+    logger.scalars(it, {"total_points": int(opac.numel())})
 
 
 if __name__ == "__main__":

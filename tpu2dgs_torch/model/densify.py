@@ -10,7 +10,9 @@ as in the JAX package, and everything is masked row writes:
 
   * children (one clone copy or two split samples per selected source)
     are compacted into free (dead) slots: the k-th valid child goes to the
-    k-th free slot,
+    k-th free slot; with `segments` = S the capacity axis is S contiguous
+    blocks and a child goes to a free slot of its own block (splat
+    sharding: each rank's block stays its own),
   * children beyond the free capacity are dropped and counted, so the
     trainer can grow the capacity,
   * Adam moments of changed rows are zeroed (optim.surgery).
@@ -79,16 +81,22 @@ def densify_and_prune(
     """One densification round. Returns (model, adam, DensifyInfo): a new
     model; the Adam moments are changed in place.
 
+    `segments` = S splits the capacity axis into S contiguous blocks and
+    compacts each block's children into free slots of that block: the
+    form that keeps splat sharding's segments on their ranks. A block
+    whose children exceed its free slots drops the rest (num_dropped).
+    S = 1 is the global compaction. Segment d of a round with S segments
+    is the round of segment d alone with the noise eps[:, d*L:(d+1)*L].
+
     The split noise `eps` (split_n, C, 2), standard normal, is drawn from
     `generator` unless it is handed in (so that a test can give two
     implementations the same numbers)."""
-    if segments != 1:
-        raise NotImplementedError("segmented densification comes with splat sharding, the next "
-                                  "multi-device slice")
     p = SplatParams(*(a.detach() for a in model.params))
     c = model.capacity
     live = model.live
     dev = live.device
+    if c % segments:
+        raise ValueError(f"capacity {c} is not {segments} equal segments")
 
     grads = torch.where(model.denom > 0,
                         model.grad_accum / torch.clamp(model.denom, min=1.0), 0.0)
@@ -131,17 +139,27 @@ def densify_and_prune(
                              zip(child_params(0), child_params(1))))  # (2C, ...)
     child_valid = torch.cat([clone_mask | split_mask, split_mask])    # (2C,)
 
-    # --- compaction: k-th valid child -> k-th free slot ---------------------
-    free = ~live_after
-    num_free = torch.sum(free)
-    slot_order = torch.argsort((~free).to(torch.int8), stable=True)   # free first
-    rank = torch.cumsum(child_valid, dim=0) - 1
-    write = child_valid & (rank < num_free)
-    dest = torch.where(write, slot_order[torch.clamp(rank, 0, c - 1)], c)  # c = dropped
+    # --- compaction: k-th valid child -> k-th free slot of its segment -----
+    # Within a segment the children are all of its child-0 rows, then its
+    # child-1 rows: with one segment, the global (2C,) order.
+    s, ell = segments, c // segments
+
+    def by_segment(a):  # (2C, ...) in (child, segment, row) order -> (2C, ...) segment-major
+        return a.reshape(2, s, ell, *a.shape[1:]).transpose(0, 1).reshape(2 * c, *a.shape[1:])
+
+    free = (~live_after).reshape(s, ell)
+    num_free = torch.sum(free, dim=1)                                          # (S,)
+    slot_order = torch.argsort((~free).to(torch.int8), dim=1, stable=True)    # free first
+    valid = by_segment(child_valid).reshape(s, 2 * ell)
+    rank = torch.cumsum(valid, dim=1) - 1
+    write = valid & (rank < num_free[:, None])
+    first = torch.arange(s, device=dev)[:, None] * ell
+    dest = torch.where(write, first + torch.gather(slot_order, 1, torch.clamp(rank, 0, ell - 1)),
+                       c).reshape(-1)                                         # c = dropped
 
     def scatter(dst, src):
         # One spare row at index c takes every dropped child.
-        return torch.cat([dst, dst[:1]]).index_copy_(0, dest, src)[:c]
+        return torch.cat([dst, dst[:1]]).index_copy_(0, dest, by_segment(src))[:c]
 
     ones = torch.ones((2 * c,), dtype=torch.bool, device=dev)
     new_params = SplatParams(*(scatter(a, b) for a, b in zip(p, children)))
@@ -155,7 +173,7 @@ def densify_and_prune(
         num_cloned=torch.sum(clone_mask),
         num_split=torch.sum(split_mask),
         num_pruned=torch.sum(prune_mask),
-        num_dropped=torch.sum(child_valid & ~write),
+        num_dropped=torch.sum(valid & ~write),
         num_live=torch.sum(new_live),
     )
     return SplatModel(new_params, new_live), new_adam, info

@@ -140,13 +140,26 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, sh_degree: int = 3,
     return model
 
 
+def pad_segments(a: torch.Tensor, new_rows: int, segments: int = 1) -> torch.Tensor:
+    """`a` (C, ...) as `segments` contiguous blocks, each padded with zero
+    rows at its end to new_rows / segments rows."""
+    c = a.shape[0]
+    s = segments
+    if c % s or new_rows % s:
+        raise ValueError(f"capacities {c} and {new_rows} are not {s} equal segments")
+    seg = a.reshape(s, c // s, *a.shape[1:])
+    pad = seg.new_zeros((s, (new_rows - c) // s, *a.shape[1:]))
+    return torch.cat([seg, pad], dim=1).reshape(new_rows, *a.shape[1:])
+
+
 @torch.no_grad()
 def grow_capacity(model: SplatModel, new_capacity: int, segments: int = 1) -> SplatModel:
     """A new model with every per-splat tensor padded to `new_capacity`:
-    dead rows with identity rotations at the end."""
-    if segments != 1:
-        raise NotImplementedError("segmented capacity comes with splat sharding, the next "
-                                  "multi-device slice")
+    dead rows with identity rotations. With `segments` = S (splat
+    sharding: the capacity axis is S contiguous blocks, and densification
+    fills free slots of a child's own block, model/densify.py) each old
+    block keeps its rows and gains (new - old) / S free rows at its end:
+    an end pad would leave every full block full."""
     c = model.capacity
     if new_capacity < c:
         raise ValueError(f"cannot shrink capacity {c} to {new_capacity}")
@@ -154,10 +167,11 @@ def grow_capacity(model: SplatModel, new_capacity: int, segments: int = 1) -> Sp
         return model
 
     def pad(a):
-        return torch.cat([a, a.new_zeros((new_capacity - c, *a.shape[1:]))])
+        return pad_segments(a.detach(), new_capacity, segments)
 
-    params = SplatParams(*(pad(a.detach()) for a in model.params))
-    params.rotation[c:, 0] = 1.0
+    params = SplatParams(*(pad(a) for a in model.params))
+    old = pad(torch.ones((c,), dtype=torch.bool, device=model.live.device))
+    params.rotation[~old, 0] = 1.0
     return SplatModel(params, pad(model.live), *(pad(getattr(model, k)) for k in STATS))
 
 

@@ -7,10 +7,11 @@ JAX package's `Mesh` (devices along a "rows" axis) becomes `Mesh` below,
 one rank's view of such a group: the process group, the rank, the number
 of ranks and the rank's device.
 
-  * `initialize()` joins the group a launcher set up (torchrun and the
-    like: RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK); one
-    process is a no-op.
-  * `make_global_mesh()` and `make_mesh(n)` are the ranks of that group.
+  * `initialize(device)` joins the group a launcher set up (torchrun and
+    the like: RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK) on
+    the device the caller resolved; one process is a no-op.
+  * `make_global_mesh(device)` and `make_mesh(n, device)` are the ranks of
+    that group.
   * `spawn(fn, n, ...)` starts n ranks on this host, joins them into a
     group over tcp://localhost, calls fn(mesh, *args) on each and returns
     their results: what `cli.train --n_devices N`, the tests and the smoke
@@ -22,8 +23,9 @@ NCCL carries the collectives when every rank has a GPU of its own; gloo
 does otherwise (the CPU, or several ranks sharing one GPU, which NCCL
 refuses). Gloo is given host tensors: a rank on a GPU under gloo stages
 each collective's tensors through host memory (`all_gather`,
-`all_reduce`). Every group is made with a timeout, so ranks that diverge
-fail in a collective instead of waiting on each other for ever.
+`all_reduce`, `all_to_all`, `reduce_scatter`, `gather_to_host`). Every
+group is made with a timeout, so ranks that diverge fail in a collective
+instead of waiting on each other for ever.
 """
 
 from __future__ import annotations
@@ -86,41 +88,92 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tenso
     return buf.to(t.device)
 
 
-def initialize() -> None:
+def all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """(size, ...) on each rank -> (size, ...): block s of the result is
+    block `rank` of rank s's `t` (every rank's `t` has the same shape)."""
+    src = _to_wire(mesh, t).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group)
+    return out.to(t.device)
+
+
+def reduce_scatter(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """(size * k, ...) on each rank -> (k, ...): block `rank` of the sum of
+    every rank's `t` (the same shape on each)."""
+    src = _to_wire(mesh, t).contiguous()
+    out = src.new_empty((src.shape[0] // mesh.size, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=mesh.group)
+    return out.to(t.device)
+
+
+def gather_to_host(mesh: Mesh, t: torch.Tensor, dst: int = 0) -> Optional[list]:
+    """Every rank's `t` (the same shape on each), in rank order, in host
+    memory on rank `dst`; None on the others. Point to point, one rank's
+    tensor at a time: `dst` never holds more than one other rank's `t` on
+    its device."""
+    wire = _to_wire(mesh, t).contiguous()
+
+    def peer(r):
+        return r if mesh.group is None else dist.get_global_rank(mesh.group, r)
+
+    if mesh.rank != dst:
+        dist.send(wire, dst=peer(dst), group=mesh.group)
+        return None
+    out = []
+    for r in range(mesh.size):
+        if r == dst:
+            out.append(wire.cpu())
+            continue
+        buf = torch.empty_like(wire)
+        dist.recv(buf, src=peer(r), group=mesh.group)
+        out.append(buf.cpu())
+    return out
+
+
+def _device_of_rank(device) -> torch.device:
+    """The device a launched rank runs on: the CPU when the caller asked
+    for it, else its GPU, cuda:LOCAL_RANK."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0))))
+
+
+def initialize(device) -> None:
     """Join the process group a launcher described in the environment:
     WORLD_SIZE and RANK, MASTER_ADDR and MASTER_PORT (read by
-    torch.distributed's env:// method), LOCAL_RANK for the GPU. Idempotent;
-    a single process (no WORLD_SIZE, or 1) is a no-op. NCCL where there is
-    a GPU (rank r on cuda:LOCAL_RANK), else gloo."""
+    torch.distributed's env:// method), LOCAL_RANK for the GPU, with
+    `device` the caller resolved. Idempotent; a single process (no
+    WORLD_SIZE, or 1) is a no-op. On the CPU gloo, else NCCL with rank r on
+    cuda:LOCAL_RANK."""
     if dist.is_initialized():
         return
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1:
         return
     rank = int(os.environ["RANK"])
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
-    if backend == "nccl":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
-    dist.init_process_group(backend, init_method="env://", world_size=world, rank=rank,
+    dev = _device_of_rank(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo" if dev.type == "cpu" else "nccl", init_method="env://",
+                            world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
 
 
-def make_global_mesh() -> Mesh:
-    """Every rank of the default group, each on its GPU under NCCL, else on
-    the CPU."""
-    dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend() == "nccl" else torch.device("cpu"))
-    return Mesh(None, dist.get_rank(), dist.get_world_size(), dev)
+def make_global_mesh(device) -> Mesh:
+    """Every rank of the default group, on `device` as `initialize` placed
+    it: the CPU, or the rank's GPU."""
+    return Mesh(None, dist.get_rank(), dist.get_world_size(), _device_of_rank(device))
 
 
-def make_mesh(n_devices: int) -> Mesh:
+def make_mesh(n_devices: int, device) -> Mesh:
     """A mesh of n devices: with one process per device, the n ranks of
     the group (start n ranks, by `spawn` or a launcher, to have n)."""
     world = dist.get_world_size()
     if n_devices != world:
         raise ValueError(f"a mesh of {n_devices} devices needs {n_devices} ranks; the group "
                          f"has {world}")
-    return make_global_mesh()
+    return make_global_mesh(device)
 
 
 def is_primary() -> bool:

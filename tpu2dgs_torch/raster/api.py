@@ -21,9 +21,12 @@ Backends, all held against the oracle:
 With `mesh=` (a parallel.distributed.Mesh, one process per device) the
 cuda and tiled backends split the image's tile rows over the mesh's ranks
 (parallel/sharded.py): every rank returns the whole dict, and gradients
-are the single-device ones. The oracle has no sharded form. Splat sharding
-(`shard_splats=True`) raises NotImplementedError: it is the next
-multi-device slice.
+are the single-device ones. The oracle has no sharded form. With
+`shard_splats=True` as well (the cuda backend), the splats are split too:
+every rank passes its own segment of the rows of every per-splat argument
+and gets back the whole image and maps, and its own rows of radii,
+visibility_filter and mean2d, which concatenated in rank order are one
+device's; gradients land on each rank's own rows.
 
 `render` is differentiable with respect to xyz, scaling, rotation,
 opacity, features and `mean2d_offset`, whichever of them require grad. A
@@ -34,6 +37,7 @@ is kept for a backward pass.
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Optional
 
 import torch
@@ -43,7 +47,7 @@ from tpu2dgs_torch.core import sh as sh_lib
 from tpu2dgs_torch.core import transforms
 from tpu2dgs_torch.core.cameras import CameraArrays, depth_to_normal
 from tpu2dgs_torch.parallel.distributed import Mesh
-from tpu2dgs_torch.parallel.sharded import rasterize_sharded
+from tpu2dgs_torch.parallel.sharded import rasterize_sharded, rasterize_splat_sharded
 from tpu2dgs_torch.raster import preprocess as pre
 from tpu2dgs_torch.raster.cuda_backend import rasterize_cuda
 from tpu2dgs_torch.raster.oracle import rasterize_oracle
@@ -71,6 +75,15 @@ class RasterSettings:
     grad_pack_capacity: int = 0  # backward packed gradient rows (0 = 16 *
                                  # tile_capacity * image tile columns);
                                  # reported by grad_pack_overflow_frac
+    xfer_capacity: int = 0       # splat sharding: the most records one
+                                 # rank sends one strip (all_to_all). 0 =
+                                 # every survivor all-gathered to every
+                                 # rank (exact, D * k_loc rows received and
+                                 # merged on each); > 0 routes records
+                                 # only to the strips their boxes cross (a
+                                 # message past the cap drops its deepest
+                                 # rows, counted by xfer_overflow_frac and
+                                 # healed by the Trainer's adaptive caps)
     # The tiled backend's knobs (the cuda backend's tiles are 16x128):
     tile_px: int = 16            # fine tile edge in pixels
     coarse_tiles: int = 4        # fine tiles per coarse bin edge
@@ -121,16 +134,17 @@ def render(
     backends have no kernel and ignore it.
 
     With `mesh`, every rank of the mesh calls render alike (the same inputs,
-    and a backward on each if on one), on the mesh's device."""
-    if shard_splats:
-        raise NotImplementedError(
-            "splat sharding (shard_splats=True) is not ported yet: it comes with the next "
-            "multi-device slice, after tile-row sharding (mesh=)")
+    and a backward on each if on one), on the mesh's device. With
+    `shard_splats` as well, each rank passes its own segment of the splat
+    rows (the same number on every rank); without a mesh the flag is
+    ignored."""
     if mesh is not None:
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.distributed.Mesh, not {type(mesh)!r}")
         if settings.backend == "oracle":
             raise ValueError("the oracle backend has no sharded form: render it without mesh=")
+        if shard_splats and settings.backend != "cuda":
+            raise ValueError("shard_splats requires the cuda backend")
         if device is not None and torch.device(device) != mesh.device:
             raise ValueError(f"device {device} is not the mesh's {mesh.device}")
         device = mesh.device
@@ -156,6 +170,14 @@ def render(
         override_color = pre.clamp_color(sh_lib.eval_sh(settings.sh_degree, shs, dirs) + 0.5)
 
     w, h = settings.width, settings.height
+    if shard_splats and mesh is not None:
+        image, allmap, radius, mean2d = rasterize_splat_sharded(
+            cam, settings, xyz, scaling, rotation, opacity, features, bg_color, mesh,
+            mean2d_offset=mean2d_offset, live=live, override_color=override_color,
+            axes_override=axes_override, plain=plain)
+        # decode_outputs reads only .radius and .mean2d of its splats
+        splats = types.SimpleNamespace(radius=radius, mean2d=mean2d)
+        return _decode(cam, settings, splats, image, allmap)
     splats = pre.preprocess(
         xyz, scaling, rotation, opacity, features, cam, w, h, settings.sh_degree,
         mean2d_offset=mean2d_offset, scale_modifier=settings.scale_modifier,
@@ -169,6 +191,12 @@ def render(
         image, allmap = rasterize_tiled(splats, settings, bg_color)
     else:
         image, allmap = rasterize_cuda(splats, settings, bg_color, plain=plain)
+    return _decode(cam, settings, splats, image, allmap)
+
+
+def _decode(cam, settings, splats, image, allmap) -> dict:
+    """decode_outputs, with the _aux_* counters under their names less the
+    prefix."""
     aux = {k: allmap.pop(k) for k in list(allmap) if k.startswith("_aux_")}
     out = decode_outputs(cam, settings, splats, image, allmap)
     for k, v in aux.items():

@@ -24,7 +24,9 @@ The pipeline of the JAX backend, kept contract for contract:
   * `BlendTiles`: the autograd function joining the two (the JAX
     backend's custom_vjp `blend_tiles`): the packed rows are scattered
     onto the rows of the differentiable record array `rec_c`.
-  * `blend_binned`: untile into image planes plus the `_aux_*` counters.
+  * `blend_binned`: untile into image planes plus the `_aux_*` counters;
+    `bin_and_blend` runs the binning and then it, for one device's
+    splats or a rank's merged survivors (parallel/sharded.py).
   * Strips and windows (the unit of multi-device work,
     parallel/sharded.py): `rasterize_cuda(..., tile_row0, nty_local)`
     bins and blends only the strip of `nty_local` tile rows that starts at
@@ -536,26 +538,40 @@ def rasterize_cuda(splats: SplatScreen, settings, bg_color: torch.Tensor,
         # Splat ids ride an f32 channel through binning (exact < 2^24).
         raise ValueError(f"cuda backend: {n} splats >= 2^24 exceeds the f32 id channel")
     comp = binning.compact_visible(splats, k_vis)
-    rec = pack_records(splats)
-    n_vis = torch.clamp(comp.num_visible, max=k_vis)
-
-    col_cap = settings.col_capacity
     # The id channel of the lists carries original splat ids (comp.perm), so
-    # the backward scatters straight onto the rows of `rec`.
+    # the backward scatters straight onto the rows of the records.
+    return bin_and_blend(comp.x0, comp.x1, comp.y0, comp.y1,
+                         torch.clamp(comp.num_visible, max=k_vis), comp.num_visible > k_vis,
+                         pack_records(splats), settings, bg_color, nbx, nty, bin_cap, cap,
+                         ids=comp.perm, plain=plain, tile_row0=tile_row0, full=full,
+                         row_lo=row_lo, row_hi=row_hi)
+
+
+def bin_and_blend(x0, x1, y0, y1, n_vis, vis_overflow, rec_c, settings, bg_color, nbx, nty,
+                  bin_cap, cap, ids=None, aux=None, plain=False, tile_row0: int = 0,
+                  full: bool = True, row_lo: int | None = None, row_hi: int | None = None):
+    """The shared tail of rasterize_cuda and the splat-sharded path
+    (parallel/sharded.py): `_bin_records` of the depth-ordered boxes
+    x0..y1 over the strip (or window), then `blend_binned` with the
+    binning counters, `_aux_vis_overflow` from `vis_overflow` (a bool
+    tensor) and the extra counters `aux`. rec_c: the differentiable
+    records, rows indexed by `ids` (None: in box order), the gradient
+    target."""
+    col_cap = settings.col_capacity
     rec3, raw_counts, bin_counts, col_counts = _bin_records(
-        comp.x0, comp.x1, comp.y0, comp.y1, n_vis, rec.detach(), nbx, nty,
-        bin_cap, cap, tile_row0, col_cap=col_cap, ids=comp.perm, plain=plain,
-        row_lo=row_lo, row_hi=row_hi)
+        x0, x1, y0, y1, n_vis, rec_c.detach(), nbx, nty, bin_cap, cap, tile_row0,
+        col_cap=col_cap, ids=ids, plain=plain, row_lo=row_lo, row_hi=row_hi)
 
     f32 = torch.float32
     aux = {
+        **(aux or {}),
         "_aux_bin_overflow_frac": torch.mean((bin_counts > bin_cap).to(f32)),
         "_aux_col_overflow_frac": torch.mean((col_counts > col_cap).to(f32)),
-        "_aux_vis_overflow": (comp.num_visible > k_vis).to(f32),
+        "_aux_vis_overflow": vis_overflow.to(f32),
         "_aux_bin_count_max": torch.amax(bin_counts).to(f32),
         "_aux_col_count_max": torch.amax(col_counts).to(f32),
     }
-    return blend_binned(rec, rec3, raw_counts, settings, bg_color, nbx, nty, aux,
+    return blend_binned(rec_c, rec3, raw_counts, settings, bg_color, nbx, nty, aux,
                         plain=plain, tile_row0=tile_row0, full=full)
 
 

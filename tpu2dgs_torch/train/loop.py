@@ -30,6 +30,18 @@ over the ranks inside render, so the view-space gradients and radii that
 densification reads, and the overflow counters (the worst strip's) that
 capacity growth reads, are the same on every rank, and every rank clones,
 splits, prunes and grows alike.
+
+With `shard_splats=True` as well (the cuda backend), each rank keeps its
+own segment of the capacity axis: the parameters, the Adam moments and
+the densification statistics, 1/D of each (parallel/sharded.py). A step
+renders with the splats sharded and runs Adam and the statistics on the
+rank's rows. A densification round runs on the rank's segment alone, with
+its columns of split noise drawn for the whole capacity from the
+generator every rank shares: segment d of densify_and_prune(segments=D)
+of the whole model. The live and dropped counts that decide growth are
+summed over the ranks, and growth pads each segment at its end.
+`whole_state` gathers the whole model into rank 0's host memory, for
+saving; `render_view` renders from the segments, every rank together.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from tpu2dgs_torch.core.cameras import Camera
 from tpu2dgs_torch.model import densify as densify_lib
 from tpu2dgs_torch.model import optim as optim_lib
 from tpu2dgs_torch.model import splats as splats_lib
+from tpu2dgs_torch.parallel import distributed, sharded
 from tpu2dgs_torch.parallel.distributed import Mesh
 from tpu2dgs_torch.raster.api import RasterSettings, render
 from tpu2dgs_torch.raster.cuda_backend import BX, _round_group
@@ -105,12 +118,13 @@ class TrainConfig:
 
 
 def view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal, lam_dist,
-                   plain: bool = False, mesh=None):
+                   plain: bool = False, mesh=None, shard_splats: bool = False):
     """The training loss of one view and its gradients: (loss, (radii, l1,
     normal loss, distortion loss, overflow dict), gradients as SplatParams,
     gradient of the screen-space offset (C,2)). `plain=True` goes through
     the kernels' plain versions; with `mesh`, the view's tile rows are
-    split over the mesh's ranks."""
+    split over the mesh's ranks, and with `shard_splats` the splats too:
+    `model` is this rank's segment."""
     p = model.params
     offset = torch.zeros((model.capacity, 2), dtype=torch.float32,
                          device=p.xyz.device, requires_grad=True)
@@ -125,6 +139,7 @@ def view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal, lam_d
         mean2d_offset=offset,
         live=model.live,
         mesh=mesh,
+        shard_splats=shard_splats,
         device=p.xyz.device,
         plain=plain,
     )
@@ -143,7 +158,8 @@ def view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal, lam_d
 def train_step(settings: RasterSettings, opt_cfg: optim_lib.OptimConfig,
                lambda_dssim: float, spatial_lr_scale: float,
                model: splats_lib.SplatModel, adam: optim_lib.AdamState,
-               cams, gts, bg, step, lam_normal: float, lam_dist: float, mesh=None):
+               cams, gts, bg, step, lam_normal: float, lam_dist: float, mesh=None,
+               shard_splats: bool = False):
     """One optimization step on the views `cams` (a list of CameraArrays)
     with ground truths `gts`. Updates `model` and `adam` in place and
     returns (model, adam, metrics); the metrics are tensors on the device.
@@ -151,10 +167,13 @@ def train_step(settings: RasterSettings, opt_cfg: optim_lib.OptimConfig,
     With several views the loss and the gradients are the mean over the
     views, the radii their maximum; the demand maxima among the overflow
     counters (*_max) reduce with the maximum, the fractions with the
-    mean. With `mesh`, each view's tile rows are split over its ranks."""
+    mean. With `mesh`, each view's tile rows are split over its ranks, and
+    with `shard_splats` the splats: `model` and `adam` are this rank's
+    segment, and num_visible is summed over the ranks."""
     n = len(cams)
     per_view = [view_gradients(model, settings, cam, gt, bg, lambda_dssim, lam_normal,
-                               lam_dist, mesh=mesh) for cam, gt in zip(cams, gts)]
+                               lam_dist, mesh=mesh, shard_splats=shard_splats)
+                for cam, gt in zip(cams, gts)]
     if n == 1:
         loss, (radii, ll1, ln, ld, overflow), gparams, goffset = per_view[0]
     else:
@@ -177,9 +196,12 @@ def train_step(settings: RasterSettings, opt_cfg: optim_lib.OptimConfig,
     half = goffset.new_tensor([settings.width * 0.5, settings.height * 0.5])
     densify_lib.add_stats(model, goffset * half[None, :], radii)
 
+    num_visible = torch.sum(radii > 0)
+    if shard_splats:
+        num_visible = distributed.all_reduce(mesh, num_visible)
     metrics = {
         "loss": loss, "l1": ll1, "normal": ln, "dist": ld,
-        "num_visible": torch.sum(radii > 0),
+        "num_visible": num_visible,
         **overflow,
     }
     return model, adam, metrics
@@ -187,12 +209,12 @@ def train_step(settings: RasterSettings, opt_cfg: optim_lib.OptimConfig,
 
 def grow_with_adam(model, adam: optim_lib.AdamState, new_capacity: int, segments: int = 1):
     """Capacity growth: pad the parameters, the statistics and the Adam
-    moments with dead rows."""
-    old_cap = model.capacity
+    moments with dead rows, spread over `segments` blocks as
+    splats.grow_capacity spreads them."""
     model = splats_lib.grow_capacity(model, new_capacity, segments=segments)
 
     def pad(a):
-        return torch.cat([a, a.new_zeros((new_capacity - old_cap, *a.shape[1:]))])
+        return splats_lib.pad_segments(a, new_capacity, segments)
 
     adam = optim_lib.AdamState(
         count=adam.count,
@@ -229,23 +251,27 @@ class Trainer:
         gui=None,
         gt_cache_mb: Optional[float] = None,
     ):
-        if shard_splats:
-            raise NotImplementedError(
-                "splat sharding (shard_splats=True) is not ported yet: it comes with the next "
-                "multi-device slice, after tile-row sharding (mesh=)")
+        # Without a mesh the flag is ignored, as in the JAX package.
+        self.shard_splats = shard_splats and mesh is not None
         if mesh is not None:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a parallel.distributed.Mesh, not {type(mesh)!r}")
-            if mesh.device != model.xyz.device:
+            host = self.shard_splats and model.xyz.device.type == "cpu"
+            if mesh.device != model.xyz.device and not host:
                 raise ValueError(f"the model is on {model.xyz.device}, the mesh's rank on "
                                  f"{mesh.device}")
         if gui is not None:
             raise NotImplementedError("the viewer is not ported yet")
-        self.model = model
         self.mesh = mesh
-        self.device = model.xyz.device
         self.max_capacity = max_capacity
-        self.adam = optim_lib.init_adam(model.params)
+        if self.shard_splats:
+            # This rank's segment of the model (whole, on the rank's device
+            # or in host memory) and fresh Adam moments for it: the Trainer
+            # keeps no reference to the whole model.
+            self.model, self.adam = sharded.shard_model_state(model, None, mesh)
+        else:
+            self.model, self.adam = model, optim_lib.init_adam(model.params)
+        self.device = self.model.xyz.device
         self.cameras = cameras
         self.width, self.height = width, height
         self.spatial_lr_scale = spatial_lr_scale
@@ -366,6 +392,36 @@ class Trainer:
                 self._gt_prefetch[nxt] = self._upload_gt(nxt)
         return arr
 
+    def _segments(self) -> int:
+        """The segments of the capacity axis: one a rank under splat
+        sharding, else one."""
+        return self.mesh.size if self.shard_splats else 1
+
+    def capacity(self) -> int:
+        """The whole model's capacity (each rank holds 1/D of it under splat
+        sharding)."""
+        return self.model.capacity * self._segments()
+
+    def whole_state(self):
+        """(model, adam), whole: under splat sharding gathered from every
+        rank's segment into rank 0's host memory, (None, None) on the other
+        ranks (a collective: every rank calls it); else the Trainer's own."""
+        if self.shard_splats:
+            return sharded.gather_model_state(self.model, self.adam, self.mesh)
+        return self.model, self.adam
+
+    def _densify_round(self, eps: torch.Tensor, use_size_prune: bool):
+        """One densification round on this rank's model. `eps` is the split
+        noise of the whole capacity; under splat sharding the rank takes its
+        segment's columns, so the round is segment `rank` of
+        densify_and_prune(segments=D) of the whole model."""
+        if self.shard_splats:
+            c = self.model.capacity
+            eps = eps[:, self.mesh.rank * c:(self.mesh.rank + 1) * c]
+        return densify_lib.densify_and_prune(
+            self.densify_cfg, self.model, self.adam, None, float(self.scene_extent),
+            use_size_prune, eps=eps)
+
     def _current_cap(self, kwarg: str) -> int:
         val = self.raster_kwargs.get(kwarg)
         if val is None:
@@ -444,7 +500,8 @@ class Trainer:
             self.model, self.adam, metrics = train_step(
                 self._settings(), self.opt_cfg, cfg.lambda_dssim, self.spatial_lr_scale,
                 self.model, self.adam, [self._cam_arrays[i] for i in idxs],
-                [self._gt_for(i) for i in idxs], bg, float(it), lam_n, lam_d, self.mesh)
+                [self._gt_for(i) for i in idxs], bg, float(it), lam_n, lam_d, self.mesh,
+                self.shard_splats)
 
             # Adaptive cap growth: consume the overflow counters at the
             # densification cadence (one host sync per interval).
@@ -454,18 +511,25 @@ class Trainer:
             # Densify / prune / opacity reset.
             if it < cfg.densify_until_iter:
                 if it > cfg.densify_from_iter and it % cfg.densification_interval == 0:
-                    self.model, self.adam, info = densify_lib.densify_and_prune(
-                        self.densify_cfg, self.model, self.adam, self.generator,
-                        float(self.scene_extent), it > cfg.opacity_reset_interval)
+                    eps = torch.randn((self.densify_cfg.split_n, self.capacity(), 2),
+                                      device=self.device, generator=self.generator)
+                    self.model, self.adam, info = self._densify_round(
+                        eps, it > cfg.opacity_reset_interval)
+                    if self.shard_splats:  # every rank decides growth alike
+                        info = densify_lib.DensifyInfo(*distributed.all_reduce(
+                            self.mesh, torch.stack(list(info))).unbind())
                     self.last_densify = info
                     # Children dropped for lack of free slots are capacity
-                    # pressure too.
-                    if ((int(info.num_live) > cfg.grow_watermark * self.model.capacity
-                         or int(info.num_dropped) > 0)
-                            and self.model.capacity < self.max_capacity):
-                        new_cap = min(splats_lib.round_capacity(2 * self.model.capacity),
-                                      self.max_capacity)
-                        self.model, self.adam = grow_with_adam(self.model, self.adam, new_cap)
+                    # pressure too: under splat sharding a full segment
+                    # drops them below the watermark.
+                    cap = self.capacity()
+                    if ((int(info.num_live) > cfg.grow_watermark * cap
+                         or int(info.num_dropped) > 0) and cap < self.max_capacity):
+                        new_cap = min(splats_lib.round_capacity(2 * cap), self.max_capacity)
+                        # a rank's segment gains its share of the new rows
+                        self.model, self.adam = grow_with_adam(
+                            self.model, self.adam,
+                            self.model.capacity + (new_cap - cap) // self._segments())
                 if it % cfg.opacity_reset_interval == 0 or (
                         self.white_background and it == cfg.densify_from_iter):
                     densify_lib.reset_opacity(self.model, self.adam)
@@ -486,7 +550,8 @@ class Trainer:
                 self.ema_loss = 0.4 * float(metrics["loss"]) + 0.6 * self.ema_loss
             if progress and it % 200 == 0:
                 dt = time.perf_counter() - t0
-                print(f"[{it}] loss={self.ema_loss:.4f} live={int(self.model.num_live())} "
+                own = " on this rank" if self.shard_splats else ""
+                print(f"[{it}] loss={self.ema_loss:.4f} live={int(self.model.num_live())}{own} "
                       f"({it / dt:.1f} it/s, {self.mpix_s:.2f} Mpix/s)", flush=True)
         self._stop_profile()  # training ended inside the profile window
         return self.model
@@ -495,9 +560,11 @@ class Trainer:
 
     @torch.no_grad()
     def render_view(self, cam: Camera, depth_ratio: Optional[float] = None):
-        """The whole view on this rank's device, with no collective (as the
-        JAX Trainer's render_view ignores its mesh): one rank may call it
-        alone."""
+        """The whole view of the model on this rank's device. Without splat
+        sharding no collective (as the JAX Trainer's render_view ignores its
+        mesh): one rank may call it alone. Under splat sharding it renders
+        the whole model from every rank's segment, with the splats sharded
+        as in training: a collective, every rank calls it."""
         kwargs = dict(self.raster_kwargs)
         if depth_ratio is not None:
             kwargs["depth_ratio"] = depth_ratio
@@ -509,4 +576,5 @@ class Trainer:
             p.xyz, torch.exp(p.scaling), p.rotation,
             torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p),
             self.bg, live=self.model.live, device=self.device,
+            mesh=self.mesh if self.shard_splats else None, shard_splats=self.shard_splats,
         )
