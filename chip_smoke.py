@@ -45,6 +45,20 @@ main path:
            contracted one (--unbounded --mesh_res 512 --cull_views 1); the
            four mesh PLYs read back, and the bounded mesh held against the
            shell it was trained to show.
+  viewer   inside cli, on the model it trained: cli.view's request
+           (NetworkGUI.serve of ModelView.render) answers a remote viewer
+           on loopback (a client thread of this process): each of the six
+           render modes 3 times, a message without a camera (no image), 24
+           RGB frames around the orbit; every frame's bytes equal to the render of its camera
+           put through its mode and cut to bytes directly on the card, K1 3
+           / K2 1 launches a frame; host ms a frame from request to reply.
+           Trainer(gui=) on the shell training set for 40 steps with a
+           client asking for frames, pausing training (the step must hold
+           still) and resuming it: K1 3 / K2 1 / K3 1 launches a step and
+           K1 3 / K2 1 a frame. LPIPS on random weights (seed 0; its values
+           mean nothing against published LPIPS): the card against the
+           CPU at 256x256, an 800x800 pair timed, and cli.metrics with its
+           LPIPS column on the model.
   backends the cuda, tiled and oracle backends on one 800x800 shell view at
            capacities no list overflows, the first two held against the
            oracle, all three against the oracle run in float64; the
@@ -67,7 +81,8 @@ Any failed check exits nonzero before that line. Needs a CUDA device, nvcc
 and g++; imports nothing of JAX. `python3 chip_smoke.py kernels` stops
 after the kernel checks, and `python3 chip_smoke.py rows` runs the build
 and the rows phase alone, `python3 chip_smoke.py splats` the build and the
-splats phase alone; none of them prints a verdict.
+splats phase alone, `python3 chip_smoke.py viewer` the build, the cli phase
+without the mesh and the viewer phase; none of them prints a verdict.
 """
 
 from __future__ import annotations
@@ -76,11 +91,16 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import re
 import resource
+import select
 import shutil
+import socket
+import struct
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -92,12 +112,13 @@ import torch
 from tpu2dgs_torch.cli import metrics as cli_metrics
 from tpu2dgs_torch.cli import render as cli_render
 from tpu2dgs_torch.cli import train as cli_train
+from tpu2dgs_torch.cli import view as cli_view
 from tpu2dgs_torch.core.cameras import fov2focal
 from tpu2dgs_torch.core.sh import sh_to_rgb
 from tpu2dgs_torch.data import colmap
 from tpu2dgs_torch.data.paths import save_img_u8
 from tpu2dgs_torch.data.scene import Scene
-from tpu2dgs_torch.eval import bin_probe, geometry, quality_gate, reduce_probe, synthetic
+from tpu2dgs_torch.eval import bin_probe, geometry, lpips, quality_gate, reduce_probe, synthetic
 from tpu2dgs_torch.eval.timing import Stopwatch, card, cuda_ms
 from tpu2dgs_torch.mesh import cull, extract, marching, tsdf
 from tpu2dgs_torch.model import splats as splats_lib
@@ -106,6 +127,8 @@ from tpu2dgs_torch.native import knn as native_knn
 from tpu2dgs_torch.parallel import distributed, rehearsal, sharded
 from tpu2dgs_torch.raster import api, binning, cuda_backend, preprocess, select_kernel
 from tpu2dgs_torch.train import checkpoint, loop
+from tpu2dgs_torch.viewer import modes as viewer_modes
+from tpu2dgs_torch.viewer import network_gui
 
 W = H = 800
 N_SPLATS = 1 << 17
@@ -156,6 +179,21 @@ MESH_ACCURACY = 0.02
 # samples: 151-153 s a run on the host of an NVIDIA H100 80GB HBM3, 700.00 W).
 SHELL_POINTS = 1 << 20   # generating surface, from seed 0
 MESH_SAMPLES = 1 << 18   # area-weighted samples of a mesh, from seed 0
+# The viewer phase, on the command-line phase's model: cli.view's request
+# (NetworkGUI.serve of ModelView.render) answers a loopback client that asks
+# for each render mode MODE_FRAMES times, sends one message without a
+# camera, then asks for ORBIT_FRAMES RGB frames around the orbit. Trainer(gui=) takes GUI_STEPS
+# steps on the shell training set with a client that asks for frames,
+# pauses training for PAUSE_S and resumes it. LPIPS runs on random weights
+# (seed 0, as tests/test_lpips.py makes them): the card against the CPU at
+# LPIPS_RES within LPIPS_TOL (relative), and an 800x800 pair timed.
+MODE_FRAMES = 3
+ORBIT_FRAMES = 24
+GUI_STEPS = 40
+PAUSE_S = 1.0
+LPIPS_RES = 256
+LPIPS_TOL = 1e-4
+CLIENT_TIMEOUT_S = 120.0
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate and the
 # float32 rate outside the tensor cores.
@@ -930,6 +968,343 @@ def mesh(model_dir: Path, caps: list[str], n_train: int, it: int):
     return launches, time.perf_counter() - t_phase
 
 
+def viewer_message(cam, mode: int = 0, train: bool = True) -> dict:
+    """The control message a remote viewer sends for the host camera `cam`
+    at 800x800: its matrices with the axis flips the server undoes."""
+    view = np.array(cam.world_view, np.float32)
+    view[:, 1:3] *= -1
+    proj = np.array(cam.full_proj, np.float32)
+    proj[:, 1] *= -1
+    return {"resolution_x": W, "resolution_y": H, "train": train, "fov_y": float(cam.fovy),
+            "fov_x": float(cam.fovx), "z_near": cam.znear, "z_far": cam.zfar,
+            "keep_alive": True, "scaling_modifier": 1.0, "shs_python": False,
+            "rot_scale_python": False, "view_matrix": view.flatten().tolist(),
+            "view_projection_matrix": proj.flatten().tolist(), "render_mode": mode}
+
+
+def recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = bytearray(n)
+    view, got = memoryview(buf), 0
+    while got < n:
+        k = sock.recv_into(view[got:])
+        if k == 0:
+            raise ConnectionError("the server closed the connection")
+        got += k
+    return bytes(buf)
+
+
+class ViewerClient(threading.Thread):
+    """A remote viewer on loopback, in a thread of this process: connects,
+    reads the render items, sends `messages` in turn (calling before(i)
+    ahead of message i) and keeps each reply (image bytes or None, verify
+    string, metrics) with the host ms from its request sent to its metrics
+    received. A failure is kept in `error` for the phase to report."""
+
+    def __init__(self, port: int, messages: list[dict], before=None):
+        super().__init__(daemon=True)
+        self.port, self.messages, self.before = port, messages, before
+        self.items, self.replies, self.ms, self.error = None, [], [], None
+
+    def framed(self, sock) -> bytes:
+        (n,) = struct.unpack("<I", recv_exact(sock, 4))
+        return recv_exact(sock, n)
+
+    def run(self) -> None:
+        try:
+            with socket.create_connection(("127.0.0.1", self.port),
+                                          timeout=CLIENT_TIMEOUT_S) as sock:
+                self.items = json.loads(self.framed(sock))
+                for i, msg in enumerate(self.messages):
+                    if self.before is not None:
+                        self.before(i)
+                    payload = json.dumps(msg).encode()
+                    t0 = time.perf_counter()
+                    sock.sendall(struct.pack("<I", len(payload)) + payload)
+                    n = msg["resolution_x"] * msg["resolution_y"] * 3
+                    image = recv_exact(sock, n) if n else None
+                    verify = self.framed(sock).decode("ascii")
+                    metrics = json.loads(self.framed(sock))
+                    self.ms.append((time.perf_counter() - t0) * 1e3)
+                    self.replies.append((image, verify, metrics))
+        except Exception as e:  # noqa: BLE001  (the thread's boundary: the phase fails on it)
+            self.error = repr(e)
+
+    def finish(self, what: str) -> None:
+        self.join(timeout=CLIENT_TIMEOUT_S)
+        if self.is_alive() or self.error is not None:
+            fail(f"{what}: the viewer client {'hangs' if self.is_alive() else self.error}")
+        if len(self.replies) != len(self.messages):
+            fail(f"{what}: {len(self.replies)} replies to {len(self.messages)} messages")
+
+
+def accept_client(gui: network_gui.NetworkGUI) -> None:
+    """Wait for the client on the listening socket, as cli.view does."""
+    ready, _, _ = select.select([gui.listener], [], [], CLIENT_TIMEOUT_S)
+    if ready:
+        gui.try_connect()
+    if gui.conn is None:
+        fail("viewer: no client connected")
+
+
+def spread(ms: list[float]) -> dict:
+    return {"median": float(np.median(ms)), "max": float(max(ms)), "n": len(ms)}
+
+
+def launches_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in native.LAUNCHES.items() if v != before.get(k, 0)}
+
+
+def served_frames(model_dir: Path, caps: list[str], it: int):
+    """cli.view's request (NetworkGUI.serve of ModelView.render) on the
+    model: each mode MODE_FRAMES times from one pose, a message without a
+    camera, ORBIT_FRAMES RGB frames around the orbit. Every frame's bytes
+    must equal the render of the same camera put through the same mode and
+    cut to bytes directly, and launch K1 3 and K2 1 times. Returns (report, launches)."""
+    view, _ = cli_view.open_model(["-m", str(model_dir), "--iteration", str(it), *caps])
+    items = network_gui.RENDER_ITEMS
+    poses = [synthetic.shell_camera(2 * np.pi * (0.13 + k / ORBIT_FRAMES), W, H)
+             for k in range(ORBIT_FRAMES)]
+    asked = [(poses[0], mode) for mode in range(len(items)) for _ in range(MODE_FRAMES)]
+    asked += [(None, 0), *((cam, 0) for cam in poses)]  # None: a message without a camera
+    messages = [viewer_message(cam, mode) if cam is not None
+                else {**viewer_message(poses[0]), "resolution_x": 0} for cam, mode in asked]
+
+    gui = network_gui.NetworkGUI("127.0.0.1", 0)
+    gui.init()
+    cams, per_request = [], []
+    watch = Stopwatch()
+    try:
+        client = ViewerClient(gui.listener.getsockname()[1], messages)
+        client.start()
+        accept_client(gui)
+        native.LAUNCHES.clear()
+        with record_calls(cli_view.ModelView, "render", cams), \
+                watch.watch(cli_view.ModelView, "render", "render"):
+            for _ in messages:
+                before = dict(native.LAUNCHES)
+                gui.serve(view.render, view.verify, view.metrics)
+                per_request.append(launches_since(before))
+        launches = dict(native.LAUNCHES)
+        client.finish("cli.view")
+    finally:
+        gui.close()
+
+    want = {"select_values": 3, "blend_tiles": 1}
+    for (pose, _), got in zip(asked, per_request):
+        if got != (want if pose is not None else {}):
+            fail(f"cli.view: a request launched {got}, want {want} a frame and nothing "
+                 "for a message without a camera")
+    if client.items != items:
+        fail(f"cli.view: render items {client.items}")
+
+    # The same frames computed directly on the card, from the PLY read anew.
+    ply = model_dir / "point_cloud" / f"iteration_{it}" / "point_cloud.ply"
+    model = splats_lib.load_ply(str(ply))
+    p = model.params
+    args = (p.xyz, torch.exp(p.scaling), p.rotation, torch.sigmoid(p.opacity[:, 0]),
+            splats_lib.features(p))
+    bg = torch.zeros(3, device=p.xyz.device)
+    served = iter(cams)
+    cam_err = 0.0
+    for k, ((pose, mode), (image, verify, metrics)) in enumerate(zip(asked, client.replies)):
+        if verify != view.verify or metrics != {"#": int(model.num_live())}:
+            fail(f"cli.view: reply {k} verify {verify!r}, metrics {metrics}")
+        if pose is None:
+            if image is not None:
+                fail("cli.view: an image for a message without a camera")
+            continue
+        (_, cam, w, h, sm), _ = next(served)
+        cam_err = max(cam_err, *(float((a - b).abs().max()) for a, b in zip(cam, pose.arrays())))
+        settings = api.RasterSettings(width=w, height=h, scale_modifier=float(sm), **view.settings)
+        with torch.no_grad():
+            pkg = api.render(cam, settings, *args, bg, live=model.live)
+        want_bytes = network_gui.image_to_bytes(viewer_modes.render_net_image(pkg, items, mode))
+        if image != want_bytes:
+            fail(f"cli.view: frame {k} ({items[mode]}) differs from the direct render -> mode "
+                 "-> bytes")
+    if cam_err > 1e-5:
+        fail(f"cli.view: received cameras off the poses' by {cam_err}")
+
+    n_modes = len(items) * MODE_FRAMES
+    render_ms = [1e3 * s for s in watch.seconds["render"]]
+    report = {
+        "frames": len(cams), "launches": launches, "camera_max_abs_err": cam_err,
+        "frame_ms_by_mode": {items[m]: spread(client.ms[m * MODE_FRAMES:(m + 1) * MODE_FRAMES])
+                             for m in range(len(items))},
+        "frame_ms_orbit_rgb": spread(client.ms[n_modes + 1:]),
+        "no_camera_ms": client.ms[n_modes],
+        "render_ms_by_mode": {items[m]: spread(render_ms[m * MODE_FRAMES:(m + 1) * MODE_FRAMES])
+                              for m in range(len(items))},
+        "render_ms_orbit_rgb": spread(render_ms[n_modes:]),
+        "frame_bytes": W * H * 3}
+    return report, launches
+
+
+def gui_training():
+    """Trainer(gui=) on the shell training set with a client connected:
+    frames between steps, a pause that must hold the step still, a resume.
+    Every step launches K1 3 / K2 1 / K3 1 times and every frame K1 3 / K2 1
+    times. Returns (report, launches)."""
+    cams, model = synthetic.make_shell_training_set(W, H, N_SPLATS, views=TRAIN_VIEWS, **GT_CAPS)
+    raster_kwargs = dict({k: v for k, v in CAPS.items() if k != "grad_pack_capacity"},
+                         grad_pack_capacity=0)
+    gui = network_gui.NetworkGUI("127.0.0.1", 0)
+    gui.init()
+    trainer = loop.Trainer(model, cams, W, H, spatial_lr_scale=1.0, scene_extent=1.0,
+                           raster_kwargs=raster_kwargs, gui=gui)
+    trainer.source_path = "shell"
+    # frames while training, a pause (a frame is still served while paused),
+    # a resume, frames again
+    trains = [True, True, False, False, True, True, True]
+    messages = [viewer_message(cams[k % len(cams)], mode=k % 4, train=t)
+                for k, t in enumerate(trains)]
+    paused_at = trains.index(False) + 1  # message sent while the trainer waits
+    held, served_at = [], []
+
+    def before(i):
+        served_at.append(trainer.step)
+        if i == paused_at:
+            s0 = trainer.step
+            time.sleep(PAUSE_S)
+            held.append((s0, trainer.step))
+
+    steps, frames = [], []
+    train_step, render_frame = loop.train_step, loop.Trainer._render_frame
+
+    def counted_step(*args, **kwargs):
+        before_ = dict(native.LAUNCHES)
+        out = train_step(*args, **kwargs)
+        steps.append(launches_since(before_))
+        return out
+
+    def counted_frame(*args, **kwargs):
+        before_ = dict(native.LAUNCHES)
+        out = render_frame(*args, **kwargs)
+        torch.cuda.synchronize()
+        frames.append(launches_since(before_))
+        return out
+
+    try:
+        client = ViewerClient(gui.listener.getsockname()[1], messages, before)
+        native.LAUNCHES.clear()
+        client.start()
+        t0 = time.perf_counter()
+        with mock.patch.object(loop, "train_step", counted_step), \
+                mock.patch.object(loop.Trainer, "_render_frame", counted_frame):
+            trainer.train(num_iters=GUI_STEPS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+    finally:
+        gui.close()  # a client still waiting gets an error, not a hang
+    client.finish("Trainer(gui=)")
+
+    step_want = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
+    frame_want = {"select_values": 3, "blend_tiles": 1}
+    if len(steps) != GUI_STEPS or any(st != step_want for st in steps):
+        fail(f"Trainer(gui=): {len(steps)} steps launched {steps}, want {step_want} each")
+    if len(frames) != len(messages) or any(f != frame_want for f in frames):
+        fail(f"Trainer(gui=): {len(frames)} frames launched {frames}, want {frame_want} each")
+    total = {k: GUI_STEPS * step_want.get(k, 0) + len(frames) * frame_want.get(k, 0)
+             for k in step_want}
+    if launches != total:
+        fail(f"Trainer(gui=): launched {launches}, want {total}")
+    if not held or held[0][0] != held[0][1] or trainer.step != GUI_STEPS:
+        fail(f"Trainer(gui=): the pause held the step at {held}, the run ended at {trainer.step}")
+    if not 0 < served_at[-1] < GUI_STEPS:
+        fail(f"Trainer(gui=): frames asked for at steps {served_at}, not while training")
+    for image, verify, metrics in client.replies:
+        if len(image) != W * H * 3 or verify != "shell" or metrics["#"] != N_SPLATS \
+                or not (math.isfinite(metrics["loss"]) and metrics["loss"] > 0):
+            fail(f"Trainer(gui=): a reply of {len(image)} bytes, {verify!r}, {metrics}")
+    report = {"steps": GUI_STEPS, "frames": len(frames), "launches": launches,
+              "train_seconds": train_s, "held_at_step": held[0][0], "pause_s": PAUSE_S,
+              "frames_asked_at_steps": served_at, "frame_ms": client.ms,
+              "loss": [m["loss"] for _, _, m in client.replies]}
+    return report, launches
+
+
+def vgg_flop(res: int) -> int:
+    """Multiply-adds x 2 of LPIPS's 13 convolutions on one res x res image."""
+    flop, cin = 0, 3
+    for b, (cout, n) in enumerate(lpips._VGG_BLOCKS):
+        for _ in range(n):
+            flop += 2 * cin * cout * 9 * (res >> b) ** 2
+            cin = cout
+    return flop
+
+
+def lpips_check(model_dir: Path, out_dir: Path, it: int) -> dict:
+    """LPIPS on random weights: the card against the CPU at LPIPS_RES, an
+    800x800 pair timed, and cli.metrics with its LPIPS column on the model."""
+    rng = np.random.default_rng(0)
+    arrays, cin, idx = {}, 3, 0
+    for cout, n in lpips._VGG_BLOCKS:
+        for _ in range(n):
+            arrays[f"conv{idx}_w"] = rng.normal(scale=0.05, size=(cout, cin, 3, 3)
+                                                ).astype(np.float32)
+            arrays[f"conv{idx}_b"] = np.zeros(cout, np.float32)
+            cin, idx = cout, idx + 1
+    for i, (cout, _) in enumerate(lpips._VGG_BLOCKS):
+        arrays[f"lin{i}_w"] = np.abs(rng.normal(size=cout)).astype(np.float32)
+    path = out_dir / "lpips_random.npz"
+    np.savez(path, **arrays)
+
+    rng = np.random.default_rng(1)
+    a, b, a8, b8 = (torch.from_numpy(rng.random((3, r, r), dtype=np.float32))
+                    for r in (LPIPS_RES, LPIPS_RES, W, W))
+    on_card = lpips.lpips_fn(str(path))
+    got_t = on_card(a.cuda(), b.cuda())
+    got = float(got_t)
+    want = float(lpips.lpips_fn(str(path), device="cpu")(a, b))
+    rel = abs(got - want) / abs(want)
+    if not (math.isfinite(got) and rel <= LPIPS_TOL):
+        fail(f"LPIPS: card {got} against CPU {want} at {LPIPS_RES}x{LPIPS_RES}, rel {rel} "
+             f"(tol {LPIPS_TOL})")
+    a8, b8 = a8.cuda(), b8.cuda()
+    ms = cuda_ms(lambda: on_card(a8, b8), reps=10, warmup=2)
+    flop = 2 * vgg_flop(W)
+
+    with mock.patch.dict(os.environ, {"TPU2DGS_LPIPS_WEIGHTS": str(path)}):
+        cli_metrics.main(["-m", str(model_dir)])
+    renders = sorted(os.listdir(model_dir / "test" / f"ours_{it}" / "renders"))
+    with open(model_dir / "per_view.json") as f:
+        per_view = json.load(f)[f"ours_{it}"]["LPIPS"]
+    with open(model_dir / "results.json") as f:
+        results = json.load(f)[f"ours_{it}"]
+    if sorted(per_view) != renders or not all(math.isfinite(v) for v in per_view.values()) \
+            or results["LPIPS"] is None or not math.isfinite(results["LPIPS"]):
+        fail(f"cli.metrics with LPIPS: per view {per_view} for {renders}, results {results}")
+    path.unlink()
+    return {"weights": "random, seed 0 (the released LPIPS weights are not in the "
+                       "repository): values are not comparable with published LPIPS",
+            "card_vs_cpu": {"res": LPIPS_RES, "card": got, "cpu": want, "rel_err": rel,
+                            "tol": LPIPS_TOL, "card_device": str(got_t.device)},
+            "ms_800": ms, "flop_800_pair": flop, "tflop_s_800": flop / ms / 1e9,
+            "bound_ms_800": flop / PEAK_F32_S * 1e3,
+            "cli_metrics": {"per_view": per_view, "results": results}}
+
+
+def viewer(model_dir: Path, out_dir: Path, caps: list[str], it: int):
+    """The viewer main path on the command-line phase's model (cli.view's
+    frames), beside it Trainer(gui=) on the shell training set, and LPIPS.
+    Returns the launches of the served frames and the trainer, and the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    served, served_launches = served_frames(model_dir, caps, it)
+    t1 = time.perf_counter()
+    training, train_launches = gui_training()
+    t2 = time.perf_counter()
+    lp = lpips_check(model_dir, out_dir, it)
+    seconds = {"served": t1 - t0, "training": t2 - t1, "lpips": time.perf_counter() - t2}
+    emit({"phase": "viewer", "card": card(), "served": served, "training": training,
+          "lpips": lp, "seconds": seconds,
+          "note": "frame ms: host clock in the client thread of the same process, from the "
+                  "request sent to the metrics received; render ms: ModelView.render between "
+                  "two synchronizes"})
+    return Counter(served_launches) + Counter(train_launches), sum(seconds.values())
+
+
 def write_colmap_scene(root: Path, cams, points: np.ndarray, colors: np.ndarray) -> None:
     """A COLMAP dataset from posed views with images and a point cloud,
     through the port's own writers."""
@@ -959,12 +1334,14 @@ def read_jsonl(path: Path) -> list[dict]:
         return [json.loads(line) for line in f]
 
 
-def cli(out_dir: Path):
+def cli(out_dir: Path, with_mesh: bool = True):
     """The command-line main path at full width: a COLMAP dataset of the
     shell training set on disk, cli.train from a fresh start (spherical
     harmonics degree 0, as every run starts, ground truth over its device
     budget), a resume from its checkpoint stamped with step 3000 (degree 3,
-    distortion loss on), cli.render and cli.metrics."""
+    distortion loss on), cli.render and cli.metrics; then the mesh phase
+    (unless `with_mesh` is false) and the viewer phase on its model. Returns
+    the launches of all of it and the two phases' seconds."""
     scene_dir, model_dir = out_dir / "scene", out_dir / "model"
     for d in (scene_dir, model_dir):
         shutil.rmtree(d, ignore_errors=True)
@@ -1117,8 +1494,12 @@ def cli(out_dir: Path):
         if not (model_dir / name).exists():
             fail(f"the model directory lacks {name}")
 
-    mesh_launches, mesh_s = mesh(model_dir, caps, n_train, last)
-    launches.update(mesh_launches)
+    mesh_s = 0.0
+    if with_mesh:
+        mesh_launches, mesh_s = mesh(model_dir, caps, n_train, last)
+        launches.update(mesh_launches)
+    viewer_launches, viewer_s = viewer(model_dir, out_dir, caps, last)
+    launches.update(viewer_launches)
 
     steps_ms = [1e3 * s / n for s, n in ((sum(watch.seconds["train_block"]), first),
                                          (sum(watch.seconds["train_block_resumed"]),
@@ -1135,7 +1516,7 @@ def cli(out_dir: Path):
           "num_live": int(reloaded.num_live())})
     shutil.rmtree(scene_dir)
     shutil.rmtree(model_dir)
-    return launches, mesh_s
+    return launches, mesh_s, viewer_s
 
 
 def r128(x) -> int:
@@ -1912,6 +2293,11 @@ def main() -> None:
     if sys.argv[1:] == ["splats"]:
         splats_phase()  # `python3 chip_smoke.py splats`: build and the splats phase, no verdict
         return
+    out_dir = Path(__file__).resolve().parent / ".smoke"
+    out_dir.mkdir(exist_ok=True)
+    if sys.argv[1:] == ["viewer"]:
+        cli(out_dir, with_mesh=False)  # the cli phase and the viewer phase on its model, no verdict
+        return
     settings = api.RasterSettings(W, H, **CAPS)
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)
     levels, level_counts = zip(*(select_level(lv, k)
@@ -1928,8 +2314,6 @@ def main() -> None:
     probe_launches = probes()
     probe_s = time.perf_counter() - t0
 
-    out_dir = Path(__file__).resolve().parent / ".smoke"
-    out_dir.mkdir(exist_ok=True)
     t0 = time.perf_counter()
     launches = serve(settings, out_dir)
     serve_s = time.perf_counter() - t0
@@ -1951,8 +2335,8 @@ def main() -> None:
     splat_launches = splats_phase()
     splats_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cli_launches, mesh_s = cli(out_dir)
-    cli_s = time.perf_counter() - t0 - mesh_s
+    cli_launches, mesh_s, viewer_s = cli(out_dir)
+    cli_s = time.perf_counter() - t0 - mesh_s - viewer_s
     t0 = time.perf_counter()
     backend_launches = backends()
     backends_s = time.perf_counter() - t0
@@ -1960,11 +2344,12 @@ def main() -> None:
     gate_launches = quality_gate_phase(out_dir)
     gate_s = time.perf_counter() - t0
     emit({"phase": "seconds", "probe": probe_s, "serve": serve_s, "train": train_s,
-          "rows": rows_s, "splats": splats_s, "cli": cli_s, "mesh": mesh_s, "backends": backends_s,
+          "rows": rows_s, "splats": splats_s, "cli": cli_s, "mesh": mesh_s, "viewer": viewer_s,
+          "backends": backends_s,
           "quality_gate": gate_s,
           "total": time.perf_counter() - t_start})
 
-    def launched(name):  # cli_launches holds the mesh phase's
+    def launched(name):  # cli_launches holds the mesh and viewer phases'
         return sum(ph.get(name, 0) for ph in (probe_launches, launches, train_launches,
                                               rows_launches, splat_launches, cli_launches,
                                               backend_launches, gate_launches))

@@ -155,7 +155,8 @@ def test_port_imports_no_jax():
         "        'mesh.extract', 'mesh.cull', 'eval.geometry', 'eval.trajectory',\n"
         "        'eval.tnt_scene', 'eval.dtu_scene', 'eval.mesh_profile', 'raster.blend',\n"
         "        'raster.oracle', 'raster.tiled', 'eval.quality_gate', 'parallel.distributed',\n"
-        "        'parallel.sharded', 'parallel.rehearsal')}\n"
+        "        'parallel.sharded', 'parallel.rehearsal', 'viewer.network_gui',\n"
+        "        'viewer.modes', 'cli.view', 'eval.lpips')}\n"
         "assert want <= mods, sorted(want - mods)\n"
         "print(len(mods))\n"
     )

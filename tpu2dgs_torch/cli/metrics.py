@@ -2,13 +2,13 @@
 — the counterpart of the JAX package's `tpu2dgs.cli.metrics` and the
 reference metrics.py.
 
-    python3 -m tpu2dgs_torch.cli.metrics -m <model dir> --no_lpips
+    python3 -m tpu2dgs_torch.cli.metrics -m <model dir> [--no_lpips]
 
 Walks <model>/test/ours_*/{renders,gt}, computes per-view SSIM and PSNR
-(train/losses.py) and writes results.json and per_view.json. LPIPS is not
-ported and its weights are not in the repository: with LPIPS asked for,
-the command says that it is unavailable and writes null, as the JAX
-package does where it finds no weights.
+(train/losses.py) and, unless --no_lpips is given, LPIPS (eval/lpips.py),
+and writes results.json and per_view.json. LPIPS needs its weights file,
+which is not in the repository: where it is missing the command says that
+LPIPS is unavailable and writes null, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -40,11 +40,16 @@ def evaluate_dir(method_dir: str, use_lpips: bool = True, device=None):
     gt_dir = os.path.join(method_dir, "gt")
     names = sorted(os.listdir(renders_dir))
 
+    lpips = None
     if use_lpips:
-        print("  (LPIPS unavailable: not ported yet, and its weights are not in "
-              "the repository)")
+        from tpu2dgs_torch.eval import lpips as lpips_lib
 
-    ssims, psnrs = [], []
+        try:
+            lpips = lpips_lib.lpips_fn(device=dev)
+        except FileNotFoundError as e:  # no weights: any other failure is raised
+            print(f"  (LPIPS unavailable: {e})")
+
+    ssims, psnrs, lpipss = [], [], []
     per_view = {"SSIM": {}, "PSNR": {}, "LPIPS": {}}
     for name in names:
         r = torch.from_numpy(_load_image_chw(os.path.join(renders_dir, name))).to(dev)
@@ -55,10 +60,14 @@ def evaluate_dir(method_dir: str, use_lpips: bool = True, device=None):
         psnrs.append(p)
         per_view["SSIM"][name] = s
         per_view["PSNR"][name] = p
+        if lpips is not None:
+            v = float(lpips(r, g))
+            lpipss.append(v)
+            per_view["LPIPS"][name] = v
     summary = {
         "SSIM": float(np.mean(ssims)),
         "PSNR": float(np.mean(psnrs)),
-        "LPIPS": None,
+        "LPIPS": float(np.mean(lpipss)) if lpipss else None,
     }
     return summary, per_view
 
@@ -81,6 +90,8 @@ def evaluate(model_paths: list[str], use_lpips: bool = True, device=None):
             per_view_dict[method] = per_view
             print(f"  SSIM : {summary['SSIM']:.7f}")
             print(f"  PSNR : {summary['PSNR']:.7f}")
+            if summary["LPIPS"] is not None:
+                print(f"  LPIPS: {summary['LPIPS']:.7f}")
         with open(os.path.join(model_path, "results.json"), "w") as f:
             json.dump(full_dict, f, indent=True)
         with open(os.path.join(model_path, "per_view.json"), "w") as f:

@@ -22,9 +22,10 @@ keeps its segment; every rank renders the test views together; at each
 save and checkpoint iteration the segments are gathered into rank 0's
 host memory, written and released.
 
-Not ported yet, and said so rather than passed over: the training viewer
-is absent, so without `--disable_viewer` the run prints that and goes on
-without one.
+Without `--disable_viewer` a one-device run serves the remote viewer on
+--ip/--port between steps (viewer/network_gui.py, `Trainer.gui`); if the
+port cannot be opened it says so and trains without. Under a mesh the
+viewer is not served (a later slice) and the run says so.
 """
 
 from __future__ import annotations
@@ -258,10 +259,6 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
         profile_dir=args.profile_dir or None,
         gt_cache_mb=args.gt_cache_mb,
     )
-    if not args.disable_viewer and primary:
-        print("viewer server unavailable (the training viewer is not ported yet); "
-              "continuing without")
-
     if args.start_checkpoint and adam is not None:
         if trainer.shard_splats:  # the whole checkpoint on every rank: keep the segment
             _, adam = sharded.shard_model_state(model, adam, mesh)
@@ -280,6 +277,22 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
     with contextlib.ExitStack() as stack:
         if logger is not None:
             stack.callback(logger.close)
+        if not args.disable_viewer and mesh is not None:
+            if primary:
+                print("viewer not served under a mesh (a later slice of the port); "
+                      "continuing without")
+        elif not args.disable_viewer:
+            from tpu2dgs_torch.viewer.network_gui import NetworkGUI
+
+            gui = NetworkGUI(args.ip, args.port, device=device)
+            stack.callback(gui.close)
+            try:
+                gui.init()
+            except OSError as e:
+                print(f"viewer server unavailable ({e}); continuing without")
+            else:
+                trainer.gui = gui
+                trainer.source_path = model_p.source_path
         if args.detect_anomaly:
             stack.enter_context(torch.autograd.set_detect_anomaly(True))
         while trainer.step < opt_p.iterations:

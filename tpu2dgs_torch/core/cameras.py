@@ -82,6 +82,13 @@ def ndc_to_pix(width: int, height: int, znear: torch.Tensor, zfar: torch.Tensor)
     return A.T
 
 
+def _f32(x, device) -> torch.Tensor:
+    """A float32 tensor of x (a number, numpy array or tensor) on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.float32(x), dtype=torch.float32, device=device)
+
+
 class CameraArrays(NamedTuple):
     """Tensor view of a camera on one device (image height/width live in
     RasterSettings)."""
@@ -133,19 +140,32 @@ class Camera:
 
     def arrays(self, device=None) -> CameraArrays:
         dev = default_device(device)
-
-        def f32(x):
-            return torch.as_tensor(np.float32(x), dtype=torch.float32, device=dev)
-
         return CameraArrays(
-            world_view=f32(self.world_view),
-            full_proj=f32(self.full_proj),
-            cam_center=f32(self.cam_center),
-            tanfovx=f32(self.tanfovx),
-            tanfovy=f32(self.tanfovy),
-            znear=f32(self.znear),
-            zfar=f32(self.zfar),
+            world_view=_f32(self.world_view, dev),
+            full_proj=_f32(self.full_proj, dev),
+            cam_center=_f32(self.cam_center, dev),
+            tanfovx=_f32(self.tanfovx, dev),
+            tanfovy=_f32(self.tanfovy, dev),
+            znear=_f32(self.znear, dev),
+            zfar=_f32(self.zfar, dev),
         )
+
+
+def make_camera_arrays(world_view, znear: float = DEFAULT_ZNEAR, zfar: float = DEFAULT_ZFAR,
+                       fovx: float = 1.0, fovy: float = 1.0, device=None) -> CameraArrays:
+    """CameraArrays on `device` from a row-vector world_view matrix and the
+    fovs: the viewer's MiniCam (reference scene/cameras.py:61-72)."""
+    dev = default_device(device)
+    world_view = _f32(world_view, dev)
+    return CameraArrays(
+        world_view=world_view,
+        full_proj=world_view @ _f32(projection(znear, zfar, fovx, fovy), dev),
+        cam_center=torch.linalg.inv(world_view)[3, :3],
+        tanfovx=_f32(math.tan(fovx / 2), dev),
+        tanfovy=_f32(math.tan(fovy / 2), dev),
+        znear=_f32(znear, dev),
+        zfar=_f32(zfar, dev),
+    )
 
 
 def view_to_pix_matrix(cam: CameraArrays, width: int, height: int) -> torch.Tensor:

@@ -257,7 +257,7 @@ def main(out_dir=None, iters: int = 2000, res: int = 128, soak: bool = False,
         "--densify_from_iter", "100", "--densify_until_iter", str(int(iters * 0.8)),
         "--densification_interval", "50",
         "--bin_capacity", "1024", "--tile_capacity", "512",
-        "--backend", backend, "--quiet", "--max_capacity", "131072",
+        "--backend", backend, "--quiet", "--max_capacity", "131072", "--disable_viewer",
     ] + schedule, device=dev)
     trained = load_ply(os.path.join(out, "point_cloud", f"iteration_{iters}",
                                     "point_cloud.ply"), device=dev)

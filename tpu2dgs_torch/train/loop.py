@@ -8,15 +8,18 @@
   * `Trainer`: the host loop: camera shuffling, the spherical-harmonics
     warm-up, densification, opacity resets, capacity growth, adaptive
     growth of the rasterizer's capacities from its overflow counters, a
-    rolling Mpix/s counter.
+    rolling Mpix/s counter, and with a viewer (`gui`, one device only) the
+    frames its client asks for between steps (K1 three times, K2 once a
+    frame on the cuda backend).
 
 On the cuda backend the step launches the select kernel three times and
 the forward and the backward blend kernel once each per view; the tiled
 and oracle backends train through plain PyTorch autograd, and the tiled
 backend's overflow counters heal its caps the same way. Nothing in the
 step reads a value back to the host: the loss is read every
-`loss_sync_interval` steps and the overflow counters once per
-densification interval, so the host keeps enqueueing ahead of the device.
+`loss_sync_interval` steps (every step while a viewer client is connected)
+and the overflow counters once per densification interval, so the host
+keeps enqueueing ahead of the device.
 
 Densification gradients: the gradient with respect to the `mean2d_offset`
 argument of render, converted from pixel units to NDC half-extent units
@@ -48,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import select
 import time
 from typing import Callable, Optional
 
@@ -260,9 +264,10 @@ class Trainer:
             if mesh.device != model.xyz.device and not host:
                 raise ValueError(f"the model is on {model.xyz.device}, the mesh's rank on "
                                  f"{mesh.device}")
-        if gui is not None:
-            raise NotImplementedError("the viewer is not ported yet")
         self.mesh = mesh
+        self.gui = gui             # a viewer.network_gui.NetworkGUI, polled every step
+        self._gui_paused = False   # the client sent do_training=False
+        self.source_path = ""      # the verify string sent to the viewer
         self.max_capacity = max_capacity
         if self.shard_splats:
             # This rank's segment of the model (whole, on the rank's device
@@ -338,6 +343,20 @@ class Trainer:
             self._gt_prefetch: dict[int, tuple] = {}
 
     # -- helpers -----------------------------------------------------------
+
+    @property
+    def gui(self):
+        return self._gui
+
+    @gui.setter
+    def gui(self, gui) -> None:
+        if gui is not None and self.mesh is not None:
+            # A frame would be a render every rank joins, and under splat
+            # sharding a rank holds only its segment of the model.
+            raise NotImplementedError(
+                "the viewer under a mesh is a later slice of the port: train with one "
+                "device, or without the viewer")
+        self._gui = gui
 
     def _settings(self) -> RasterSettings:
         return RasterSettings(
@@ -544,10 +563,16 @@ class Trainer:
                 metrics["mpix_per_s"] = self.mpix_s
             if self.log_fn is not None:
                 self.log_fn(it, metrics)
+            if self.gui is not None and self.gui.conn is None:
+                self.gui.try_connect()  # a client waiting: no wait if none is
+            viewed = self.gui is not None and self.gui.conn is not None
             # The loss EMA is for display: read it now and then, so the
-            # host does not wait for the device every step.
-            if it % cfg.loss_sync_interval == 0 or it == end:
+            # host does not wait for the device every step; every step
+            # while a viewer client is connected, which shows it.
+            if it % cfg.loss_sync_interval == 0 or it == end or viewed:
                 self.ema_loss = 0.4 * float(metrics["loss"]) + 0.6 * self.ema_loss
+            if viewed:
+                self._poll_gui(it, end)
             if progress and it % 200 == 0:
                 dt = time.perf_counter() - t0
                 own = " on this rank" if self.shard_splats else ""
@@ -555,6 +580,40 @@ class Trainer:
                       f"({it / dt:.1f} it/s, {self.mpix_s:.2f} Mpix/s)", flush=True)
         self._stop_profile()  # training ended inside the profile window
         return self.model
+
+    def _poll_gui(self, it: int, end: int) -> None:
+        """Serve the connected viewer's pending requests between steps
+        (reference train.py:146-168): a frame of the model as it is, then
+        back to training. Only a request already waiting is read, so an
+        idle client does not hold training up; while the client has paused
+        training (do_training=False), the poll waits for its next request
+        instead."""
+        gui = self.gui
+        while gui.conn is not None:
+            try:
+                timeout = None if self._gui_paused else 0.0
+                readable, _, _ = select.select([gui.conn], [], [], timeout)
+                if not readable:
+                    break
+                do_training, keep_alive = gui.serve(
+                    self._render_frame, self.source_path,
+                    {"#": int(self.model.num_live()), "loss": self.ema_loss})
+                self._gui_paused = not do_training
+                if do_training and (it < end or not keep_alive):
+                    break
+            except (ConnectionError, OSError):
+                gui.disconnect()
+                self._gui_paused = False
+
+    @torch.no_grad()
+    def _render_frame(self, cam, width: int, height: int, scaling_modifier: float) -> dict:
+        """A viewer frame of the model at the client's resolution."""
+        settings = RasterSettings(width=width, height=height, sh_degree=self.active_sh_degree,
+                                  scale_modifier=float(scaling_modifier), **self.raster_kwargs)
+        p = self.model.params
+        return render(cam.to(self.device), settings, p.xyz, torch.exp(p.scaling), p.rotation,
+                      torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p), self.bg,
+                      live=self.model.live, device=self.device)
 
     # -- rendering for eval -------------------------------------------------
 
