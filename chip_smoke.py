@@ -39,7 +39,9 @@ main path:
   cli      the shell training set written to disk as a COLMAP dataset,
            cli.train from a fresh start with its ground truth kept on the
            host, a resume from its checkpoint at full width, cli.render
-           and cli.metrics on the model directory.
+           and cli.metrics on the model directory, and eval.summary on the
+           directory that holds it (its row holds cli.metrics' PSNR and
+           SSIM).
   mesh     inside cli, on the model it trained: cli.render without
            --skip_mesh, a bounded TSDF at the default --mesh_res 1024 and a
            contracted one (--unbounded --mesh_res 512 --cull_views 1); the
@@ -70,6 +72,20 @@ main path:
            128x128 through cli.train, cli.render with the mesh and
            cli.metrics): K1 3 / K2 1 / K3 1 launches per step, and the
            gate's verdict, which must pass.
+  scripts  the JAX repo's scripts as the port's entry points, each called
+           as a function: eval.train_bench at its defaults (the Trainer's
+           capacities settled, then 300 timed steps at 800x800 with 2^17
+           splats, no growth inside them), eval.soak_train at 800x800 cut
+           to SOAK_STEPS steps (PSNR over 4 views must rise, every
+           parameter and moment finite), K1 3 / K2 1 / K3 1 launches a step
+           and K1 3 / K2 1 a render in both, every loss finite;
+           eval.fidelity_probe (the exact render overflows nowhere; the
+           demand and truncation rows of both scenes); eval.capk_probe (K2
+           and K3 timed at 1024, 2048 and 4096, and 4096 at 2048's counts
+           bit-equal to 2048; at 4096 both finite and within their
+           standing tolerances of their plain versions);
+           eval.loss_probe's four chains; eval.strip_balance_probe's
+           max/mean work at 2, 4 and 8 devices on both scenes.
 
 Each path counts the kernel launches it makes, from zero. Each phase
 prints one JSON line; the line before the last but one lists every kernel
@@ -82,7 +98,8 @@ and g++; imports nothing of JAX. `python3 chip_smoke.py kernels` stops
 after the kernel checks, and `python3 chip_smoke.py rows` runs the build
 and the rows phase alone, `python3 chip_smoke.py splats` the build and the
 splats phase alone, `python3 chip_smoke.py viewer` the build, the cli phase
-without the mesh and the viewer phase; none of them prints a verdict.
+without the mesh and the viewer phase, `python3 chip_smoke.py scripts` the
+same and then the scripts phase; none of them prints a verdict.
 """
 
 from __future__ import annotations
@@ -118,7 +135,9 @@ from tpu2dgs_torch.core.sh import sh_to_rgb
 from tpu2dgs_torch.data import colmap
 from tpu2dgs_torch.data.paths import save_img_u8
 from tpu2dgs_torch.data.scene import Scene
-from tpu2dgs_torch.eval import bin_probe, geometry, lpips, quality_gate, reduce_probe, synthetic
+from tpu2dgs_torch.eval import (bin_probe, capk_probe, fidelity_probe, geometry, loss_probe,
+                                lpips, quality_gate, reduce_probe, soak_train,
+                                strip_balance_probe, summary, synthetic, train_bench)
 from tpu2dgs_torch.eval.timing import Stopwatch, card, cuda_ms
 from tpu2dgs_torch.mesh import cull, extract, marching, tsdf
 from tpu2dgs_torch.model import splats as splats_lib
@@ -278,6 +297,13 @@ GRAD_SCENE_CAPS = dict(bin_capacity=8192, tile_capacity=8192, col_capacity=8192)
 BACKEND_REPS = 3
 # The quality gate at its calibrated defaults (iterations, pixels).
 QGATE = (2000, 128)
+# The scripts phase: the soak cut from the script's 3000 steps to SOAK_STEPS
+# (densification rounds at steps 600-1100, until 0.8 of the steps) for the
+# phase's time; its width, scene and schedule are the script's. Launches of
+# a training step and of a render.
+SOAK_STEPS = 1500
+STEP_LAUNCHES = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
+VIEW_LAUNCHES = {"select_values": 3, "blend_tiles": 1}
 
 KEYS = ["render", "rend_alpha", "rend_normal", "rend_dist", "surf_depth",
         "surf_normal", "depth_median"]
@@ -1493,6 +1519,7 @@ def cli(out_dir: Path, with_mesh: bool = True):
     for name in ("cfg_args", "cameras.json", "input.ply", "per_view.json"):
         if not (model_dir / name).exists():
             fail(f"the model directory lacks {name}")
+    summary_check(out_dir, model_dir, results)
 
     mesh_s = 0.0
     if with_mesh:
@@ -1778,30 +1805,19 @@ def quality_gate_phase(out_dir: Path):
     gate_dir = out_dir / "qgate"
     shutil.rmtree(gate_dir, ignore_errors=True)
     steps = []
-    train_step = loop.train_step
-
-    def counted(*args, **kwargs):
-        before = dict(native.LAUNCHES)
-        out = train_step(*args, **kwargs)
-        steps.append({k: native.LAUNCHES.get(k, 0) - before.get(k, 0)
-                      for k in ("select_values", "blend_tiles", "blend_tiles_backward")})
-        return out
-
     watch = Stopwatch()
     native.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with mock.patch.object(loop, "train_step", counted), \
+    with per_call(loop, "train_step", steps), \
             watch.watch(loop.Trainer, "train", "train"), \
             watch.watch(cli_render, "extract_mesh", "mesh"):
         report = quality_gate.main(str(gate_dir), *QGATE)
     seconds = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
     iters = QGATE[0]
-    want = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
-    off = [i for i, st in enumerate(steps, 1) if st != want]
-    if len(steps) != iters or off:
-        fail(f"quality_gate: {len(steps)} steps, {len(off)} of them not 3 / 1 / 1 "
-             f"(first: {[steps[i - 1] for i in off[:3]]})")
+    if len(steps) != iters:
+        fail(f"quality_gate: {len(steps)} steps, want {iters}")
+    check_calls("quality_gate steps", steps, STEP_LAUNCHES)
     emit({"phase": "quality_gate", "seconds": seconds, "launches": launches,
           "train_seconds": sum(watch.seconds["train"]),
           "steps_per_s": iters / sum(watch.seconds["train"]),
@@ -2256,6 +2272,158 @@ def splats_phase() -> dict:
     return dict(launches)
 
 
+@contextlib.contextmanager
+def per_call(owner, name: str, log: list, keep=lambda out: None):
+    """Patch owner.name so each call appends (the kernel launches it made,
+    keep(its result)) to `log`."""
+    orig = getattr(owner, name)
+
+    def counted(*args, **kwargs):
+        before = Counter(native.LAUNCHES)
+        out = orig(*args, **kwargs)
+        log.append((dict(Counter(native.LAUNCHES) - before), keep(out)))
+        return out
+
+    with mock.patch.object(owner, name, counted):
+        yield
+
+
+def step_loss(out):
+    return out[2]["loss"]  # train_step's metrics
+
+
+def check_calls(what: str, log: list, want: dict) -> None:
+    off = [i for i, (got, _) in enumerate(log, 1) if got != want]
+    if not log or off:
+        fail(f"{what}: {len(log)} calls, {len(off)} of them not {want} "
+             f"(first: {[log[i - 1][0] for i in off[:3]]})")
+
+
+def finite_losses(what: str, log: list) -> list[float]:
+    losses = torch.stack([loss for _, loss in log]).tolist()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{what}: a non-finite loss among {len(losses)} steps")
+    return losses
+
+
+def capk_against_plain() -> dict:
+    """K2 and K3 on the bench lists zero-padded to capk_probe's largest
+    capacity (tiles past 2048 entries walk zero records) against their
+    plain versions, at the kernels' standing tolerances."""
+    rec3, raw, nty = capk_probe.lists(torch.device("cuda"))
+    capk = capk_probe.CAPKS[-1]
+    r3 = capk_probe.at_capk(rec3, capk)
+    counts = torch.clamp(raw, max=capk).to(torch.int32)
+    out, rows, args = capk_probe.blend_both(r3, counts, nty)
+    ref = cuda_backend.blend_tiles_plain(r3, counts, nty)
+    ref_rows = cuda_backend.blend_tiles_backward_plain(*args)[:rows.shape[0]]
+    torch.cuda.synchronize()
+    err = float((out[:, :12] - ref[:, :12]).abs().max())
+    flips = float((out[:, 12] != ref[:, 12]).to(torch.float32).mean())
+    row_scale = ref_rows[:, :19].abs().amax(dim=1).clamp(min=1e-30)
+    row_err = float(((rows[:, :19] - ref_rows[:, :19]).abs().amax(dim=1) / row_scale).max())
+    finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(rows).all())
+    if not (finite and err <= KERNEL_TOL and flips <= LAST_FLIP_FRAC and row_err <= BWD_ROW_TOL
+            and torch.equal(rows[:, 19], ref_rows[:, 19])):
+        fail(f"capk {capk}: finite {finite}; K2 vs plain max|d| {err} (tol {KERNEL_TOL}), "
+             f"last-contributor flips {flips} (tol {LAST_FLIP_FRAC}); K3 row error {row_err} "
+             f"(tol {BWD_ROW_TOL}), slot column equal "
+             f"{torch.equal(rows[:, 19], ref_rows[:, 19])}")
+    return {"capk": capk, "tiles_past_base": int((raw > rec3.shape[2]).sum()),
+            "k2_max_abs_err": err, "k2_last_flip_frac": flips, "k3_rows": rows.shape[0],
+            "k3_row_rel_err": row_err}
+
+
+def scripts_phase() -> dict:
+    """The JAX repo's scripts as the port's entry points, each called as a
+    function at its defaults (the soak cut to SOAK_STEPS steps), with
+    their launches counted: K1 3 / K2 1 / K3 1 a training step and K1 3 /
+    K2 1 a render. Returns the phase's launches; the kernels' comparisons
+    with their plain versions are not among them."""
+    t_phase = time.perf_counter()
+    launches = Counter()
+    seconds = {}
+
+    def counted(name, fn):
+        native.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches.update(native.LAUNCHES)
+        return out, dict(native.LAUNCHES)
+
+    steps = []
+    with per_call(loop, "train_step", steps, step_loss):
+        bench, got = counted("train_bench", train_bench.run)
+    check_calls("train_bench steps", steps, STEP_LAUNCHES)
+    finite_losses("train_bench", steps)
+    if got != {k: v * len(steps) for k, v in STEP_LAUNCHES.items()}:
+        fail(f"train_bench: {len(steps)} steps launched {got}")
+    emit({"phase": "scripts", "script": "train_bench", "steps": len(steps), **bench,
+          "seconds": seconds["train_bench"]})
+
+    steps, views = [], []
+    with per_call(loop, "train_step", steps, step_loss), \
+            per_call(loop.Trainer, "render_view", views):
+        (soak, trainer), got = counted("soak_train", lambda: soak_train.run(SOAK_STEPS, W))
+    check_calls("soak_train steps", steps, STEP_LAUNCHES)
+    check_calls("soak_train evaluation renders", views, VIEW_LAUNCHES)
+    losses = finite_losses("soak_train", steps)
+    renders = len(views) + soak_train.VIEWS  # and the ground truth's
+    want = {k: STEP_LAUNCHES[k] * len(steps) + VIEW_LAUNCHES.get(k, 0) * renders
+            for k in STEP_LAUNCHES}
+    if got != want or len(steps) != SOAK_STEPS:
+        fail(f"soak_train: {len(steps)} steps and {renders} renders launched {got}, want {want}")
+    if not soak["psnr4_end"] > soak["psnr4_start"]:
+        fail(f"soak_train: PSNR over 4 views went from {soak['psnr4_start']} to "
+             f"{soak['psnr4_end']}")
+    for name, a in [*trainer.model.params._asdict().items(),
+                    *((f"mu.{k}", v) for k, v in trainer.adam.mu._asdict().items()),
+                    *((f"nu.{k}", v) for k, v in trainer.adam.nu._asdict().items())]:
+        if not bool(torch.isfinite(a).all()):
+            fail(f"soak_train: non-finite {name}")
+    del trainer
+    emit({"phase": "scripts", "script": "soak_train", **soak, "loss_first": losses[0],
+          "loss_last": losses[-1], "evaluation_renders": len(views),
+          "cut": f"{SOAK_STEPS} steps of the script's 3000 (the phase's time); width, "
+                 "scene and schedule the script's", "seconds": seconds["soak_train"]})
+
+    fidelity, got = counted("fidelity_probe", fidelity_probe.run)
+    renders = 2 * (2 + len(fidelity_probe.TILE_CAPS))
+    if got != {k: v * renders for k, v in VIEW_LAUNCHES.items()}:
+        fail(f"fidelity_probe: {renders} renders launched {got}")
+    emit({"phase": "scripts", "script": "fidelity_probe", **fidelity,
+          "seconds": seconds["fidelity_probe"]})
+
+    capk, got = counted("capk_probe", capk_probe.run)
+    plain = capk_against_plain()
+    emit({"phase": "scripts", "script": "capk_probe", **capk, "against_plain": plain,
+          "launches": got, "seconds": seconds["capk_probe"]})
+
+    loss, _ = counted("loss_probe", loss_probe.run)
+    emit({"phase": "scripts", "script": "loss_probe", **loss, "seconds": seconds["loss_probe"]})
+
+    balance, got = counted("strip_balance_probe", strip_balance_probe.run)
+    if got != {"select_values": 3 * 2}:
+        fail(f"strip_balance_probe: two scenes' binning launched {got}")
+    emit({"phase": "scripts", "script": "strip_balance_probe", **balance,
+          "seconds": seconds["strip_balance_probe"]})
+    emit({"phase": "scripts", "launches": dict(launches), "seconds": seconds,
+          "total_seconds": time.perf_counter() - t_phase})
+    return dict(launches)
+
+
+def summary_check(out_dir: Path, model_dir: Path, results: dict) -> None:
+    """eval.summary on the directory that holds the cli phase's model: its
+    row of the model holds the PSNR and SSIM cli.metrics wrote."""
+    rows = summary.main(["-o", str(out_dir)])
+    row = rows.get(model_dir.name, {})
+    if (row.get("PSNR"), row.get("SSIM")) != (results["PSNR"], results["SSIM"]):
+        fail(f"summary: the model's row {row} lacks cli.metrics' {results}")
+    emit({"phase": "scripts", "script": "summary", "rows": rows})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2297,6 +2465,10 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     if sys.argv[1:] == ["viewer"]:
         cli(out_dir, with_mesh=False)  # the cli phase and the viewer phase on its model, no verdict
+        return
+    if sys.argv[1:] == ["scripts"]:
+        cli(out_dir, with_mesh=False)  # its model for eval.summary, then the scripts phase
+        scripts_phase()
         return
     settings = api.RasterSettings(W, H, **CAPS)
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)
@@ -2343,16 +2515,18 @@ def main() -> None:
     t0 = time.perf_counter()
     gate_launches = quality_gate_phase(out_dir)
     gate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    script_launches = scripts_phase()
+    scripts_s = time.perf_counter() - t0
     emit({"phase": "seconds", "probe": probe_s, "serve": serve_s, "train": train_s,
           "rows": rows_s, "splats": splats_s, "cli": cli_s, "mesh": mesh_s, "viewer": viewer_s,
-          "backends": backends_s,
-          "quality_gate": gate_s,
+          "backends": backends_s, "quality_gate": gate_s, "scripts": scripts_s,
           "total": time.perf_counter() - t_start})
 
     def launched(name):  # cli_launches holds the mesh and viewer phases'
         return sum(ph.get(name, 0) for ph in (probe_launches, launches, train_launches,
                                               rows_launches, splat_launches, cli_launches,
-                                              backend_launches, gate_launches))
+                                              backend_launches, gate_launches, script_launches))
 
     emit({"kernels": [
         {"name": "select_values", "route": "cuda",

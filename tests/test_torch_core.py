@@ -138,14 +138,16 @@ def test_core_matches_jax(case):
 
 
 def test_port_imports_no_jax():
-    """Every tpu2dgs_torch module imports without pulling in jax or any
-    tpu2dgs module (run in a fresh interpreter: conftest imports jax)."""
+    """Every tpu2dgs_torch module imports without pulling in jax, any
+    tpu2dgs module or pandas (the GPU machine has none; run in a fresh
+    interpreter: conftest imports jax)."""
     code = (
         "import pkgutil, sys, importlib, tpu2dgs_torch\n"
         "for m in pkgutil.walk_packages(tpu2dgs_torch.__path__, 'tpu2dgs_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "       or n == 'tpu2dgs' or n.startswith('tpu2dgs.')]\n"
+        "       or n == 'tpu2dgs' or n.startswith('tpu2dgs.')\n"
+        "       or n == 'pandas' or n.startswith('pandas.')]\n"
         "assert not bad, bad\n"
         "mods = {n for n in sys.modules if n.startswith('tpu2dgs_torch.')}\n"
         "want = {'tpu2dgs_torch.' + n for n in ('cli.config', 'cli.train', 'cli.render',\n"
@@ -156,7 +158,10 @@ def test_port_imports_no_jax():
         "        'eval.tnt_scene', 'eval.dtu_scene', 'eval.mesh_profile', 'raster.blend',\n"
         "        'raster.oracle', 'raster.tiled', 'eval.quality_gate', 'parallel.distributed',\n"
         "        'parallel.sharded', 'parallel.rehearsal', 'viewer.network_gui',\n"
-        "        'viewer.modes', 'cli.view', 'eval.lpips')}\n"
+        "        'viewer.modes', 'cli.view', 'eval.lpips', 'eval.train_bench',\n"
+        "        'eval.soak_train', 'eval.fidelity_probe', 'eval.capk_probe',\n"
+        "        'eval.loss_probe', 'eval.strip_balance_probe', 'eval.nerf_eval',\n"
+        "        'eval.m360_eval', 'eval.dtu_eval', 'eval.tnt_eval', 'eval.summary')}\n"
         "assert want <= mods, sorted(want - mods)\n"
         "print(len(mods))\n"
     )

@@ -18,7 +18,10 @@ counterpart is found under the same path:
              command line
   eval/      synthetic bench scenes and a training set, the serve and
              train profiles, the binning and reduction probes, the
-             geometry evaluators (Chamfer, F-score, TnT and DTU scenes)
+             geometry evaluators (Chamfer, F-score, TnT and DTU scenes),
+             and the JAX repo's scripts: the training bench and soak, the
+             fidelity, capacity, loss and strip-balance probes, the
+             dataset harnesses and their summary
   native/    nvcc build of csrc/*.cu (and g++ build of the host's Morton KNN)
              into shared libraries bound with ctypes
   csrc/      the CUDA C++ kernels

@@ -58,6 +58,18 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def device_label(dev: torch.device) -> str:
+    """What a result was measured on: the card's name and power limit
+    (`card`) on a GPU, "cpu" on the CPU."""
+    return card() if dev.type == "cuda" else "cpu"
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 class Stopwatch:
     """Host seconds spent inside chosen functions, each call bracketed by
     `sync` (a device synchronize on the GPU): where a run's time goes."""
