@@ -36,6 +36,21 @@ main path:
            launches per rank and render or step, each rank at half the
            capacity; each rank's peak device memory over 3 steps against
            one rank's, run in a process of its own. It measures no scaling.
+  ranks    the viewer over ranks and the collective probe: two ranks sharing
+           the card over gloo run Trainer(mesh=, gui=) on the shell
+           training set under tile rows and under splat sharding, rank 0
+           serving a client thread that pauses training, asks for a frame
+           in each render mode and one without a camera, holds the pause
+           past two heartbeats and resumes; every frame's bytes equal to
+           the one-device frame of the same state, K1 3 / K2 1 a frame on
+           each rank that renders it (rank 0 alone under tile rows), K1 3 /
+           K2 1 / K3 1 a step; cli.train --n_devices 2 with the viewer on
+           and no client against --disable_viewer (losses within the card's
+           run-to-run spread, step ms);
+           eval.collective_probe on 8 ranks sharing the card at the JAX
+           script's defaults (2^14 splats, 256x256) and at the bench shape
+           (2^17, 800x800): bytes by kind and part a setting, K1 3 / K2 1 /
+           K3 1 a rank and setting. It measures no scaling.
   cli      the shell training set written to disk as a COLMAP dataset,
            cli.train from a fresh start with its ground truth kept on the
            host, a resume from its checkpoint at full width, cli.render
@@ -97,7 +112,9 @@ Any failed check exits nonzero before that line. Needs a CUDA device, nvcc
 and g++; imports nothing of JAX. `python3 chip_smoke.py kernels` stops
 after the kernel checks, and `python3 chip_smoke.py rows` runs the build
 and the rows phase alone, `python3 chip_smoke.py splats` the build and the
-splats phase alone, `python3 chip_smoke.py viewer` the build, the cli phase
+splats phase alone, `python3 chip_smoke.py ranks` the build and the ranks
+phase alone (`ranks_nccl` on a host with two GPUs: its viewer and cli runs on
+cuda:0 and cuda:1 over NCCL), `python3 chip_smoke.py viewer` the build, the cli phase
 without the mesh and the viewer phase, `python3 chip_smoke.py scripts` the
 same and then the scripts phase; none of them prints a verdict.
 """
@@ -113,11 +130,8 @@ import re
 import resource
 import select
 import shutil
-import socket
-import struct
 import subprocess
 import sys
-import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -135,9 +149,9 @@ from tpu2dgs_torch.core.sh import sh_to_rgb
 from tpu2dgs_torch.data import colmap
 from tpu2dgs_torch.data.paths import save_img_u8
 from tpu2dgs_torch.data.scene import Scene
-from tpu2dgs_torch.eval import (bin_probe, capk_probe, fidelity_probe, geometry, loss_probe,
-                                lpips, quality_gate, reduce_probe, soak_train,
-                                strip_balance_probe, summary, synthetic, train_bench)
+from tpu2dgs_torch.eval import (bin_probe, capk_probe, collective_probe, fidelity_probe,
+                                geometry, loss_probe, lpips, quality_gate, reduce_probe,
+                                soak_train, strip_balance_probe, summary, synthetic, train_bench)
 from tpu2dgs_torch.eval.timing import Stopwatch, card, cuda_ms
 from tpu2dgs_torch.mesh import cull, extract, marching, tsdf
 from tpu2dgs_torch.model import splats as splats_lib
@@ -174,6 +188,29 @@ SPLAT_RANKS = 2
 SPLAT_XFER_SMALL = 4096
 SPLAT_STEPS = 6
 SPLAT_ROUTED_TOL = 1e-5  # routed renders against the all-gather ones, max |d|
+# The ranks phase: Trainer(mesh=, gui=) on two ranks sharing the card, under
+# tile rows and under splat sharding: RANKS_STEPS steps with the viewer on and
+# no client, then one step whose poll serves a client that pauses training,
+# asks for a frame in each render mode and one without a camera, holds the
+# pause for RANKS_HOLD_S (RANKS_HEARTBEAT_S apart, rank 0 tells the other
+# rank it is still paused) and resumes; cli.train --n_devices 2 for
+# RANKS_CLI_STEPS steps with the viewer on and no client, against
+# --disable_viewer, twice each in turns (off, on, off, on);
+# eval.collective_probe on PROBE_RANKS ranks at the JAX script's defaults
+# and at the bench shape.
+RANKS = 2
+RANKS_STEPS = 3
+RANKS_HEARTBEAT_S = 1.0
+RANKS_HOLD_S = 2.5
+RANKS_CLI_STEPS = 12
+RANKS_NCCL_CLI_STEPS = 48  # ranks_nccl's: a step there is about 30 ms
+# Two runs of the same training differ on the card in the last bits (atomic
+# float additions, `index_add_`'s among them, add in no fixed order): 1.2e-6
+# relative at step 12 between two runs without the viewer on an NVIDIA H100
+# 80GB HBM3, 700.00 W.
+RANKS_CLI_LOSS_RTOL = 1e-4
+PROBE_RANKS = 8
+PROBE_SHAPES = ((14, 256), (17, 800))  # (N_log2, W)
 TRAIN_STEPS = 24
 TRAIN_VIEWS = 4  # one epoch of the camera shuffle: first and last 4 steps see every view
 # The command-line phase: 4 views on disk (3 to train on, 1 held out), a
@@ -996,71 +1033,18 @@ def mesh(model_dir: Path, caps: list[str], n_train: int, it: int):
 
 def viewer_message(cam, mode: int = 0, train: bool = True) -> dict:
     """The control message a remote viewer sends for the host camera `cam`
-    at 800x800: its matrices with the axis flips the server undoes."""
-    view = np.array(cam.world_view, np.float32)
-    view[:, 1:3] *= -1
-    proj = np.array(cam.full_proj, np.float32)
-    proj[:, 1] *= -1
-    return {"resolution_x": W, "resolution_y": H, "train": train, "fov_y": float(cam.fovy),
-            "fov_x": float(cam.fovx), "z_near": cam.znear, "z_far": cam.zfar,
-            "keep_alive": True, "scaling_modifier": 1.0, "shs_python": False,
-            "rot_scale_python": False, "view_matrix": view.flatten().tolist(),
-            "view_projection_matrix": proj.flatten().tolist(), "render_mode": mode}
+    at 800x800."""
+    return rehearsal.viewer_message(cam, W, H, mode, train)
 
 
-def recv_exact(sock: socket.socket, n: int) -> bytes:
-    buf = bytearray(n)
-    view, got = memoryview(buf), 0
-    while got < n:
-        k = sock.recv_into(view[got:])
-        if k == 0:
-            raise ConnectionError("the server closed the connection")
-        got += k
-    return bytes(buf)
-
-
-class ViewerClient(threading.Thread):
-    """A remote viewer on loopback, in a thread of this process: connects,
-    reads the render items, sends `messages` in turn (calling before(i)
-    ahead of message i) and keeps each reply (image bytes or None, verify
-    string, metrics) with the host ms from its request sent to its metrics
-    received. A failure is kept in `error` for the phase to report."""
-
-    def __init__(self, port: int, messages: list[dict], before=None):
-        super().__init__(daemon=True)
-        self.port, self.messages, self.before = port, messages, before
-        self.items, self.replies, self.ms, self.error = None, [], [], None
-
-    def framed(self, sock) -> bytes:
-        (n,) = struct.unpack("<I", recv_exact(sock, 4))
-        return recv_exact(sock, n)
-
-    def run(self) -> None:
-        try:
-            with socket.create_connection(("127.0.0.1", self.port),
-                                          timeout=CLIENT_TIMEOUT_S) as sock:
-                self.items = json.loads(self.framed(sock))
-                for i, msg in enumerate(self.messages):
-                    if self.before is not None:
-                        self.before(i)
-                    payload = json.dumps(msg).encode()
-                    t0 = time.perf_counter()
-                    sock.sendall(struct.pack("<I", len(payload)) + payload)
-                    n = msg["resolution_x"] * msg["resolution_y"] * 3
-                    image = recv_exact(sock, n) if n else None
-                    verify = self.framed(sock).decode("ascii")
-                    metrics = json.loads(self.framed(sock))
-                    self.ms.append((time.perf_counter() - t0) * 1e3)
-                    self.replies.append((image, verify, metrics))
-        except Exception as e:  # noqa: BLE001  (the thread's boundary: the phase fails on it)
-            self.error = repr(e)
-
-    def finish(self, what: str) -> None:
-        self.join(timeout=CLIENT_TIMEOUT_S)
-        if self.is_alive() or self.error is not None:
-            fail(f"{what}: the viewer client {'hangs' if self.is_alive() else self.error}")
-        if len(self.replies) != len(self.messages):
-            fail(f"{what}: {len(self.replies)} replies to {len(self.messages)} messages")
+def finish_client(client: rehearsal.ViewerClient, what: str) -> None:
+    """Fail the phase unless the viewer client ended, unharmed, with a
+    reply to each of its messages."""
+    client.join(timeout=CLIENT_TIMEOUT_S)
+    if client.is_alive() or client.error is not None:
+        fail(f"{what}: the viewer client {'hangs' if client.is_alive() else client.error}")
+    if len(client.replies) != len(client.messages):
+        fail(f"{what}: {len(client.replies)} replies to {len(client.messages)} messages")
 
 
 def accept_client(gui: network_gui.NetworkGUI) -> None:
@@ -1100,7 +1084,8 @@ def served_frames(model_dir: Path, caps: list[str], it: int):
     cams, per_request = [], []
     watch = Stopwatch()
     try:
-        client = ViewerClient(gui.listener.getsockname()[1], messages)
+        client = rehearsal.ViewerClient(gui.listener.getsockname()[1], messages,
+                                        timeout_s=CLIENT_TIMEOUT_S)
         client.start()
         accept_client(gui)
         native.LAUNCHES.clear()
@@ -1111,7 +1096,7 @@ def served_frames(model_dir: Path, caps: list[str], it: int):
                 gui.serve(view.render, view.verify, view.metrics)
                 per_request.append(launches_since(before))
         launches = dict(native.LAUNCHES)
-        client.finish("cli.view")
+        finish_client(client, "cli.view")
     finally:
         gui.close()
 
@@ -1211,7 +1196,8 @@ def gui_training():
         return out
 
     try:
-        client = ViewerClient(gui.listener.getsockname()[1], messages, before)
+        client = rehearsal.ViewerClient(gui.listener.getsockname()[1], messages, before,
+                                        CLIENT_TIMEOUT_S)
         native.LAUNCHES.clear()
         client.start()
         t0 = time.perf_counter()
@@ -1223,7 +1209,7 @@ def gui_training():
         launches = dict(native.LAUNCHES)
     finally:
         gui.close()  # a client still waiting gets an error, not a hang
-    client.finish("Trainer(gui=)")
+    finish_client(client, "Trainer(gui=)")
 
     step_want = {"select_values": 3, "blend_tiles": 1, "blend_tiles_backward": 1}
     frame_want = {"select_values": 3, "blend_tiles": 1}
@@ -1808,7 +1794,7 @@ def quality_gate_phase(out_dir: Path):
     watch = Stopwatch()
     native.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with per_call(loop, "train_step", steps), \
+    with rehearsal.per_call(loop, "train_step", steps), \
             watch.watch(loop.Trainer, "train", "train"), \
             watch.watch(cli_render, "extract_mesh", "mesh"):
         report = quality_gate.main(str(gate_dir), *QGATE)
@@ -2272,20 +2258,148 @@ def splats_phase() -> dict:
     return dict(launches)
 
 
-@contextlib.contextmanager
-def per_call(owner, name: str, log: list, keep=lambda out: None):
-    """Patch owner.name so each call appends (the kernel launches it made,
-    keep(its result)) to `log`."""
-    orig = getattr(owner, name)
+def ranks_frames(name: str, got, n_messages: int, split: bool) -> dict:
+    """Check one Trainer(mesh=, gui=) run of the ranks phase (both ranks'
+    results) and return its figures."""
+    rank0, rank1 = got
+    if rank0["client_error"] is not None or rank0["client_alive"]:
+        fail(f"ranks ({name}): the viewer client {rank0['client_error'] or 'hangs'}")
+    replies = rank0["replies"]
+    asked = sum(r["image"] for r in replies)
+    if len(replies) != n_messages or rank0["items"] != network_gui.RENDER_ITEMS:
+        fail(f"ranks ({name}): {len(replies)} replies to {n_messages} messages, items "
+             f"{rank0['items']}")
+    for k, r in enumerate(replies):
+        if r["verify"] != "ranks" or r["metrics"]["#"] != rank0["num_live"] \
+                or not r.get("bytes_equal", not r["image"]):
+            fail(f"ranks ({name}): reply {k} {r}, the whole model's live count "
+                 f"{rank0['num_live']}")
+    # under tile rows rank 0 renders each frame alone; under splats every rank
+    frames_want = [[VIEW_LAUNCHES] * asked, [VIEW_LAUNCHES] * (asked if split else 0)]
+    for r, want in zip(got, frames_want):
+        if r["frame_launches"] != want:
+            fail(f"ranks ({name}): frames launched {r['frame_launches']}, want {want}")
+        if r["step_launches"] != [STEP_LAUNCHES] * (RANKS_STEPS + 1):
+            fail(f"ranks ({name}): steps launched {r['step_launches']}, want {STEP_LAUNCHES} "
+                 "each")
+        if r["idle_requests_read"]:
+            fail(f"ranks ({name}): {r['idle_requests_read']} cameras read out of the words of "
+                 f"{RANKS_STEPS} steps with nobody watching")
+        codes = [c for _, c in r["words"]]
+        if (r["step"] != RANKS_STEPS + 1 or r["served_seconds"] < RANKS_HOLD_S
+                or codes.count(loop.GUI_PAUSED) < 2 or codes[-1] != loop.GUI_RESUME
+                or len(r["idle_word_seconds"]) != RANKS_STEPS):
+            fail(f"ranks ({name}): the pause held step {r['step']} for {r['served_seconds']} s "
+                 f"with words {r['words']}; {len(r['idle_word_seconds'])} idle words")
+    return {"frame_ms": rank0["frame_ms"], "served_seconds": [r["served_seconds"] for r in got],
+            "words_rank1": rank1["words"], "num_live": rank0["num_live"],
+            "idle_word_ms": [[1e3 * x for x in r["idle_word_seconds"]] for r in got],
+            "idle_bytes": [r["idle_bytes"] for r in got],
+            "frame_launches_rank1": len(rank1["frame_launches"])}
 
-    def counted(*args, **kwargs):
-        before = Counter(native.LAUNCHES)
-        out = orig(*args, **kwargs)
-        log.append((dict(Counter(native.LAUNCHES) - before), keep(out)))
-        return out
 
-    with mock.patch.object(owner, name, counted):
-        yield
+def ranks_phase(out_dir: Path, devices=None, cli_steps: int = RANKS_CLI_STEPS) -> dict:
+    """The viewer over ranks and the collective probe. Two ranks sharing
+    cuda:0 over gloo run Trainer(mesh=, gui=) on the 800x800 shell training
+    set (131,072 splats, SH 3, the ground truth's capacities) under tile
+    rows and under splat sharding, rank 0 serving a client thread of its
+    own: each frame's bytes equal to the one-device frame of the same state
+    through the same mode, K1 3 / K2 1 a frame on each rank that renders it
+    and K1 3 / K2 1 / K3 1 a step, the pause holding both ranks' step; then
+    cli.train --n_devices 2 with the viewer on and no client against
+    --disable_viewer (losses within RANKS_CLI_LOSS_RTOL, step ms of each);
+    then
+    eval.collective_probe at both PROBE_SHAPES on PROBE_RANKS ranks sharing
+    the card (K1 3 / K2 1 / K3 1 a rank and setting). Returns the launches
+    of every rank's main path. With `devices` (a GPU each, NCCL) the two
+    ranks run there, and the probe, whose bytes do not depend on the link,
+    is left out."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    ranks_on = devices or [dev] * RANKS
+    _, backend = distributed.rank_devices(RANKS, ranks_on)
+    cams, model = synthetic.make_shell_training_set(W, H, N_SPLATS, views=TRAIN_VIEWS, **GT_CAPS)
+    start = rehearsal.model_arrays(model)
+    scene_dir = out_dir / "ranks_scene"
+    shutil.rmtree(scene_dir, ignore_errors=True)
+    write_colmap_scene(scene_dir, cams, model.xyz.detach().cpu().numpy(),
+                       sh_to_rgb(model.features_dc.detach()[:, 0]).cpu().numpy())
+    del model
+    kw = dict(spatial_lr_scale=1.0, scene_extent=1.0, raster_kwargs=dict(GT_CAPS))
+    n_items = len(network_gui.RENDER_ITEMS)
+    messages = [rehearsal.viewer_message(cams[m % len(cams)], W, H, m, train=False)
+                for m in range(n_items)]
+    messages += [dict(messages[0], resolution_x=0),
+                 rehearsal.viewer_message(cams[1], W, H, 0, keep_alive=False)]
+    caps = [f"--{k}={v}" for k, v in GT_CAPS.items()]
+    common = ["-s", str(scene_dir), "--n_devices", str(RANKS), "--resolution", "1", "--quiet",
+              "--iterations", str(cli_steps), *caps]
+    runs = [[*common, "-m", str(out_dir / f"ranks_{k}"),
+             *(("--port", str(distributed.free_port())) if k % 2 else ("--disable_viewer",))]
+            for k in range(4)]  # off, on, off, on
+    t0 = time.perf_counter()
+    rows, splats, cli_runs = zip(*distributed.spawn(
+        rehearsal.each, RANKS,
+        args=([*((rehearsal.viewer_rank, (start, cams, W, H, RANKS_STEPS,
+                                          dict(kw, shard_splats=split), messages,
+                                          RANKS_HEARTBEAT_S, RANKS_HOLD_S, 3))
+                 for split in (False, True)),
+               (rehearsal.cli_viewer_rank, (runs,))],),
+        device=ranks_on, timeout_s=900))
+    spawn_s = time.perf_counter() - t0
+    frames = {"rows": ranks_frames("rows", rows, len(messages), False),
+              "splats": ranks_frames("splats", splats, len(messages), True)}
+
+    launches = Counter()
+    for got in (*rows, *splats):
+        for step in (*got["step_launches"], *got["frame_launches"]):
+            launches.update(step)
+    cli_report = []
+    for rank, got in enumerate(cli_runs):
+        loss = np.array([run["loss"] for run in got])  # (off, on, off, on) x steps
+        rel = np.abs(loss - loss[0]) / np.abs(loss[0])
+        if loss.shape != (4, cli_steps) or not np.all(np.isfinite(loss)) \
+                or rel.max() > RANKS_CLI_LOSS_RTOL:
+            fail(f"ranks: cli.train on rank {rank}: losses {loss.tolist()} (off, on, off, on), "
+                 f"relative to the first run's {rel.max(axis=1).tolist()}")
+        kinds = [run["viewer"] for run in got]
+        if kinds != [None, "NetworkGUI" if rank == 0 else "Follower"] * 2:
+            fail(f"ranks: cli.train on rank {rank} trained with viewers {kinds}")
+        for run in got:
+            if run["launches"] != [STEP_LAUNCHES] * cli_steps:
+                fail(f"ranks: cli.train steps launched {run['launches']}, want "
+                     f"{STEP_LAUNCHES} each")
+            for step in run["launches"]:
+                launches.update(step)
+        cli_report.append({
+            "loss_rel_to_first_run": rel.max(axis=1).tolist(),
+            "step_ms_median": [1e3 * float(np.median(run["step_seconds"])) for run in got],
+            "steps_per_s": [run["steps"] / run["train_seconds"] for run in got]})
+
+    probes = []
+    for n_log2, w in PROBE_SHAPES if devices is None else ():
+        t0 = time.perf_counter()
+        res = collective_probe.run(n_log2, w, PROBE_RANKS, dev)
+        for s in res["settings"]:
+            if not s["ranks_equal"] or s["launches"] != [STEP_LAUNCHES] * PROBE_RANKS:
+                fail(f"ranks: collective_probe {n_log2} {w} {s['label']}: launches "
+                     f"{s['launches']}, every rank's bytes equal: {s['ranks_equal']}")
+            for got in s["launches"]:
+                launches.update(got)
+        probes.append({"n_log2": n_log2, "w": w, "seconds": time.perf_counter() - t0,
+                       "transport": res["transport"],
+                       "settings": [{k: s[k] for k in ("label", "bytes_total", "bytes", "parts",
+                                                       "xfer")}
+                                    for s in res["settings"]]})
+    emit({"phase": "ranks", "card": card(), "ranks": RANKS,
+          "backend": f"{backend} on {sorted({str(d) for d in ranks_on})}",
+          "splats": N_SPLATS, "capacities": GT_CAPS, "spawn_seconds": spawn_s,
+          "heartbeat_s": RANKS_HEARTBEAT_S, "hold_s": RANKS_HOLD_S, "frames": frames,
+          "cli": cli_report, "cli_steps": cli_steps,
+          "cli_loss": [r[0]["loss"] for r in cli_runs], "probe": probes,
+          "scaling": "none measured: ranks share one card",
+          "seconds": time.perf_counter() - t_phase})
+    return dict(launches)
 
 
 def step_loss(out):
@@ -2354,7 +2468,7 @@ def scripts_phase() -> dict:
         return out, dict(native.LAUNCHES)
 
     steps = []
-    with per_call(loop, "train_step", steps, step_loss):
+    with rehearsal.per_call(loop, "train_step", steps, step_loss):
         bench, got = counted("train_bench", train_bench.run)
     check_calls("train_bench steps", steps, STEP_LAUNCHES)
     finite_losses("train_bench", steps)
@@ -2364,8 +2478,8 @@ def scripts_phase() -> dict:
           "seconds": seconds["train_bench"]})
 
     steps, views = [], []
-    with per_call(loop, "train_step", steps, step_loss), \
-            per_call(loop.Trainer, "render_view", views):
+    with rehearsal.per_call(loop, "train_step", steps, step_loss), \
+            rehearsal.per_call(loop.Trainer, "render_view", views):
         (soak, trainer), got = counted("soak_train", lambda: soak_train.run(SOAK_STEPS, W))
     check_calls("soak_train steps", steps, STEP_LAUNCHES)
     check_calls("soak_train evaluation renders", views, VIEW_LAUNCHES)
@@ -2463,6 +2577,13 @@ def main() -> None:
         return
     out_dir = Path(__file__).resolve().parent / ".smoke"
     out_dir.mkdir(exist_ok=True)
+    if sys.argv[1:] == ["ranks"]:
+        ranks_phase(out_dir)  # `python3 chip_smoke.py ranks`: build and the ranks phase, no verdict
+        return
+    if sys.argv[1:] == ["ranks_nccl"]:  # the same on cuda:0 and cuda:1 over NCCL, no probe
+        ranks_phase(out_dir, [torch.device("cuda", r) for r in range(RANKS)],
+                    RANKS_NCCL_CLI_STEPS)
+        return
     if sys.argv[1:] == ["viewer"]:
         cli(out_dir, with_mesh=False)  # the cli phase and the viewer phase on its model, no verdict
         return
@@ -2507,6 +2628,9 @@ def main() -> None:
     splat_launches = splats_phase()
     splats_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    rank_launches = ranks_phase(out_dir)
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     cli_launches, mesh_s, viewer_s = cli(out_dir)
     cli_s = time.perf_counter() - t0 - mesh_s - viewer_s
     t0 = time.perf_counter()
@@ -2519,13 +2643,14 @@ def main() -> None:
     script_launches = scripts_phase()
     scripts_s = time.perf_counter() - t0
     emit({"phase": "seconds", "probe": probe_s, "serve": serve_s, "train": train_s,
-          "rows": rows_s, "splats": splats_s, "cli": cli_s, "mesh": mesh_s, "viewer": viewer_s,
-          "backends": backends_s, "quality_gate": gate_s, "scripts": scripts_s,
+          "rows": rows_s, "splats": splats_s, "ranks": ranks_s, "cli": cli_s, "mesh": mesh_s,
+          "viewer": viewer_s, "backends": backends_s, "quality_gate": gate_s, "scripts": scripts_s,
           "total": time.perf_counter() - t_start})
 
     def launched(name):  # cli_launches holds the mesh and viewer phases'
         return sum(ph.get(name, 0) for ph in (probe_launches, launches, train_launches,
-                                              rows_launches, splat_launches, cli_launches,
+                                              rows_launches, splat_launches, rank_launches,
+                                              cli_launches,
                                               backend_launches, gate_launches, script_launches))
 
     emit({"kernels": [

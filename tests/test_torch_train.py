@@ -43,6 +43,7 @@ from tpu2dgs_torch.parallel.distributed import Mesh
 from tpu2dgs_torch.raster import api as tapi
 from tpu2dgs_torch.train import loop as tloop
 from tpu2dgs_torch.train import losses as tlosses
+from tpu2dgs_torch.viewer import network_gui
 
 FIELDS = jsplats.SplatParams._fields
 
@@ -485,16 +486,18 @@ def test_trainer_profile_window_writes_a_trace(trainers, tmp_path):
 
 
 def test_trainer_refuses_unported_modes(trainers):
-    """The viewer is ported for one device (tests/test_torch_viewer.py) and
-    not under a mesh; a mesh must be the port's (tile-row and
-    splat-sharded training are held to one device in
+    """The viewer on one device is tests/test_torch_viewer.py's and under a
+    mesh tests/test_torch_ranks.py's, where rank 0 alone serves it: rank 0
+    given a follower's viewer is refused. A mesh must be the port's
+    (tile-row and splat-sharded training are held to one device in
     tests/test_torch_sharded.py and tests/test_torch_splat_sharded.py)."""
     _, tt, _, _ = trainers
     gui = object()
     assert tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, gui=gui).gui is gui
     one_rank = Mesh(None, 0, 1, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="viewer under a mesh is a later slice"):
-        tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, mesh=one_rank, gui=gui)
+    with pytest.raises(ValueError, match="rank 0 serves the viewer"):
+        tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, mesh=one_rank,
+                      gui=network_gui.Follower())
     # without a mesh, shard_splats is ignored, as in the JAX package
     tr = tloop.Trainer(tt.model, tt.cameras, W, H, 1.0, 3.0, shard_splats=True)
     assert not tr.shard_splats and tr.model is tt.model and tr.capacity() == tt.model.capacity

@@ -22,10 +22,13 @@ keeps its segment; every rank renders the test views together; at each
 save and checkpoint iteration the segments are gathered into rank 0's
 host memory, written and released.
 
-Without `--disable_viewer` a one-device run serves the remote viewer on
+Without `--disable_viewer` the run serves the remote viewer on
 --ip/--port between steps (viewer/network_gui.py, `Trainer.gui`); if the
-port cannot be opened it says so and trains without. Under a mesh the
-viewer is not served (a later slice) and the run says so.
+port cannot be opened it says so and trains without. Under a mesh rank 0
+alone opens the port and serves the client, and one broadcast tells every
+rank whether it did; each frame is rendered as the Trainer's poll says
+(`train/loop.py`: rank 0 alone under tile rows, every rank under splat
+sharding).
 """
 
 from __future__ import annotations
@@ -277,20 +280,11 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
     with contextlib.ExitStack() as stack:
         if logger is not None:
             stack.callback(logger.close)
-        if not args.disable_viewer and mesh is not None:
-            if primary:
-                print("viewer not served under a mesh (a later slice of the port); "
-                      "continuing without")
-        elif not args.disable_viewer:
-            from tpu2dgs_torch.viewer.network_gui import NetworkGUI
-
-            gui = NetworkGUI(args.ip, args.port, device=device)
-            stack.callback(gui.close)
-            try:
-                gui.init()
-            except OSError as e:
-                print(f"viewer server unavailable ({e}); continuing without")
-            else:
+        if not args.disable_viewer:
+            gui = _open_viewer(args, device, mesh)
+            if gui is not None:
+                if primary:  # a NetworkGUI; a Follower elsewhere
+                    stack.callback(gui.close)
                 trainer.gui = gui
                 trainer.source_path = model_p.source_path
         if args.detect_anomaly:
@@ -312,6 +306,29 @@ def run_training(model_p, opt_p, pipe_p, raster_p, args, device, mesh=None):
     if primary:
         print("Training complete.")
     return trainer
+
+
+def _open_viewer(args, device, mesh):
+    """The viewer's server on --ip/--port, or None (and a message) when the
+    port cannot be opened. Under a mesh rank 0 opens it and broadcasts
+    whether it could; the other ranks get a Follower, or None with it."""
+    from tpu2dgs_torch.viewer.network_gui import Follower, NetworkGUI
+
+    gui, bound = None, True
+    if distributed.is_primary():
+        gui = NetworkGUI(args.ip, args.port, device=device)
+        try:
+            gui.init()
+        except OSError as e:
+            print(f"viewer server unavailable ({e}); continuing without")
+            gui.close()
+            gui, bound = None, False
+    if mesh is not None:
+        flag = torch.tensor([int(bound)], dtype=torch.int32, device=mesh.device)
+        bound = bool(distributed.broadcast(mesh, flag, part="viewer"))
+        if mesh.rank != 0:
+            gui = Follower() if bound else None
+    return gui
 
 
 def _write(trainer, it: int, save: bool, checkpoint: bool, model_path: str) -> None:

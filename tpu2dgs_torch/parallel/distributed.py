@@ -12,20 +12,29 @@ of ranks and the rank's device.
     the device the caller resolved; one process is a no-op.
   * `make_global_mesh(device)` and `make_mesh(n, device)` are the ranks of
     that group.
-  * `spawn(fn, n, ...)` starts n ranks on this host, joins them into a
-    group over tcp://localhost, calls fn(mesh, *args) on each and returns
-    their results: what `cli.train --n_devices N`, the tests and the smoke
-    run use. `configure_cpu_rehearsal` joins a rank of a CPU rehearsal
-    (gloo, one PyTorch thread), the no-hardware dress rehearsal of a
-    multi-GPU run.
+  * `spawn(fn, n, ...)` starts n ranks on this host (on its GPUs unless
+    the caller asks for the CPU), joins them into a group over
+    tcp://localhost, calls fn(mesh, *args) on each and returns their
+    results: what `cli.train --n_devices N`, the tests and the smoke run
+    use. `configure_cpu_rehearsal` joins a rank of a CPU rehearsal (gloo,
+    one PyTorch thread), the no-hardware dress rehearsal of a multi-GPU
+    run.
 
 NCCL carries the collectives when every rank has a GPU of its own; gloo
 does otherwise (the CPU, or several ranks sharing one GPU, which NCCL
 refuses). Gloo is given host tensors: a rank on a GPU under gloo stages
 each collective's tensors through host memory (`all_gather`,
-`all_reduce`, `all_to_all`, `reduce_scatter`, `gather_to_host`). Every
-group is made with a timeout, so ranks that diverge fail in a collective
-instead of waiting on each other for ever.
+`all_reduce`, `all_to_all`, `reduce_scatter`, `broadcast`,
+`gather_to_host`). `host_mesh` gives the same ranks over gloo in host
+memory, for small control tensors the host reads. Every group is made
+with a timeout, so ranks that diverge fail in a collective instead of
+waiting on each other for ever.
+
+`BYTES` counts, per kind of collective, the bytes each wrapper's output
+holds on this rank: the convention of the JAX package's collective probe
+(`scripts/collective_probe.py`, the output bytes of each collective in
+the compiled program), so `eval.collective_probe` can take the bytes of
+one step.
 """
 
 from __future__ import annotations
@@ -39,13 +48,46 @@ import queue
 import socket
 import time
 import traceback
+from collections import Counter
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from tpu2dgs_torch import default_device
+
 # Seconds a collective waits for the other ranks before it fails.
 COLLECTIVE_TIMEOUT_S = 300.0
+
+# Output bytes on this rank by (part, kind): the kinds are "all_gather",
+# "all_reduce", "all_to_all", "reduce_scatter", "broadcast", and
+# "gather_to_host", which has no counterpart among the JAX program's
+# collectives; the part is the caller's `part=` ("exchange": a splat
+# exchange and its cotangents; "assembly": an image's rows and counters;
+# "gradients": the splat-gradient sum; "other"). Counted by each wrapper;
+# a caller that wants the bytes of one step clears it first
+# (`reset_bytes`) and reads them after (`snapshot_bytes`).
+BYTES: Counter = Counter()
+
+
+def reset_bytes() -> None:
+    BYTES.clear()
+
+
+def snapshot_bytes(by_part: bool = False) -> dict:
+    """The bytes counted since the last `reset_bytes`: {kind: bytes}, or
+    with `by_part` {part: {kind: bytes}}."""
+    out: dict = {}
+    for (part, kind), n in sorted(BYTES.items()):
+        if by_part:
+            out.setdefault(part, {})[kind] = n
+        else:
+            out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def _count(part: str, kind: str, *outs: torch.Tensor) -> None:
+    BYTES[part, kind] += sum(t.numel() * t.element_size() for t in outs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,38 +114,71 @@ def _to_wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return t.detach().cpu() if mesh.staged else t.detach()
 
 
-def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+def all_gather(mesh: Mesh, t: torch.Tensor, part: str = "other") -> torch.Tensor:
     """(size, *t.shape): every rank's `t`, in rank order, on t's device.
     Every rank's tensor has the same shape."""
     src = _to_wire(mesh, t).contiguous()
     out = [torch.empty_like(src) for _ in range(mesh.size)]
     dist.all_gather(out, src, group=mesh.group)
+    _count(part, "all_gather", *out)
     return torch.stack(out).to(t.device)
 
 
-def all_reduce(mesh: Mesh, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+def all_reduce(mesh: Mesh, t: torch.Tensor, op=dist.ReduceOp.SUM,
+               part: str = "other") -> torch.Tensor:
     """`op` of every rank's `t` (same shape on each), on t's device."""
     buf = _to_wire(mesh, t).clone()
     dist.all_reduce(buf, op=op, group=mesh.group)
+    _count(part, "all_reduce", buf)
     return buf.to(t.device)
 
 
-def all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+def all_to_all(mesh: Mesh, t: torch.Tensor, part: str = "other") -> torch.Tensor:
     """(size, ...) on each rank -> (size, ...): block s of the result is
     block `rank` of rank s's `t` (every rank's `t` has the same shape)."""
     src = _to_wire(mesh, t).contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=mesh.group)
+    _count(part, "all_to_all", out)
     return out.to(t.device)
 
 
-def reduce_scatter(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+def reduce_scatter(mesh: Mesh, t: torch.Tensor, part: str = "other") -> torch.Tensor:
     """(size * k, ...) on each rank -> (k, ...): block `rank` of the sum of
     every rank's `t` (the same shape on each)."""
     src = _to_wire(mesh, t).contiguous()
     out = src.new_empty((src.shape[0] // mesh.size, *src.shape[1:]))
     dist.reduce_scatter_tensor(out, src, group=mesh.group)
+    _count(part, "reduce_scatter", out)
     return out.to(t.device)
+
+
+def _peer(mesh: Mesh, r: int) -> int:
+    """The global rank of the mesh's rank r."""
+    return r if mesh.group is None else dist.get_global_rank(mesh.group, r)
+
+
+def broadcast(mesh: Mesh, t: torch.Tensor, src: int = 0, part: str = "other") -> torch.Tensor:
+    """Rank `src`'s `t` on every rank (each passes a tensor of the same
+    shape and type; the others' values are not read), on t's device. For
+    small tensors: a control word, a count."""
+    buf = _to_wire(mesh, t).clone()
+    dist.broadcast(buf, src=_peer(mesh, src), group=mesh.group)
+    _count(part, "broadcast", buf)
+    return buf.to(t.device)
+
+
+def host_mesh(mesh: Mesh) -> Mesh:
+    """The ranks of `mesh` over gloo with tensors in host memory, for
+    control tensors the host reads: reading a collective's result off a GPU
+    would make the host wait for the device. The mesh's own group when it
+    is gloo; else a new gloo group of the same ranks, which every rank
+    makes together (a collective)."""
+    group = mesh.group
+    if dist.get_backend(group) != "gloo":
+        group = dist.new_group([_peer(mesh, r) for r in range(mesh.size)], backend="gloo",
+                               timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    return Mesh(group, mesh.rank, mesh.size, torch.device("cpu"))
 
 
 def gather_to_host(mesh: Mesh, t: torch.Tensor, dst: int = 0) -> Optional[list]:
@@ -112,12 +187,8 @@ def gather_to_host(mesh: Mesh, t: torch.Tensor, dst: int = 0) -> Optional[list]:
     tensor at a time: `dst` never holds more than one other rank's `t` on
     its device."""
     wire = _to_wire(mesh, t).contiguous()
-
-    def peer(r):
-        return r if mesh.group is None else dist.get_global_rank(mesh.group, r)
-
     if mesh.rank != dst:
-        dist.send(wire, dst=peer(dst), group=mesh.group)
+        dist.send(wire, dst=_peer(mesh, dst), group=mesh.group)
         return None
     out = []
     for r in range(mesh.size):
@@ -125,16 +196,18 @@ def gather_to_host(mesh: Mesh, t: torch.Tensor, dst: int = 0) -> Optional[list]:
             out.append(wire.cpu())
             continue
         buf = torch.empty_like(wire)
-        dist.recv(buf, src=peer(r), group=mesh.group)
+        dist.recv(buf, src=_peer(mesh, r), group=mesh.group)
         out.append(buf.cpu())
+    _count("other", "gather_to_host", *out)  # the output is dst's alone
     return out
 
 
 def _device_of_rank(device) -> torch.device:
     """The device a launched rank runs on: the CPU when the caller asked
-    for it, else its GPU, cuda:LOCAL_RANK."""
+    for it, the GPU it named (a rank of a group `spawn` made), else its
+    GPU, cuda:LOCAL_RANK."""
     dev = torch.device(device)
-    if dev.type == "cpu":
+    if dev.type == "cpu" or dev.index is not None:
         return dev
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0))))
 
@@ -244,7 +317,7 @@ def _rank_main(fn, rank, devices, backend, port, args, results) -> None:
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn(fn: Callable, n: int, args: Sequence = (), device="cpu",
+def spawn(fn: Callable, n: int, args: Sequence = (), device=None,
           timeout_s: Optional[float] = 900.0):
     """Run fn(mesh, *args) on n new ranks of one group and return their
     results, in rank order. `timeout_s` None waits as long as the ranks
@@ -253,10 +326,12 @@ def spawn(fn: Callable, n: int, args: Sequence = (), device="cpu",
 
     `fn` and `args` are pickled to each rank (fn by its import path), and so
     is each result: return host data. `device` is as `rank_devices` takes
-    it. Raises RuntimeError with the first failing rank's traceback, and
-    TimeoutError when the ranks have not all answered within `timeout_s`;
-    either way every rank is stopped before it returns."""
-    devices, backend = rank_devices(n, device)
+    it; None, the default, is the GPUs (cuda:0 .. cuda:n-1, which raises
+    without n of them): pass "cpu" for CPU ranks. Raises RuntimeError with
+    the first failing rank's traceback, and TimeoutError when the ranks
+    have not all answered within `timeout_s`; either way every rank is
+    stopped before it returns."""
+    devices, backend = rank_devices(n, default_device(device) if device is None else device)
     port = free_port()
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()

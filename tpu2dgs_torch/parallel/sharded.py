@@ -87,7 +87,7 @@ class _Replicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         flat = torch.cat([g.reshape(-1) for g in grads])
-        flat = distributed.all_reduce(ctx.mesh, flat)
+        flat = distributed.all_reduce(ctx.mesh, flat, part="gradients")
         out, at = [], 0
         for shape in ctx.shapes:
             k = shape.numel()
@@ -113,7 +113,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, mesh):
         ctx.rank, ctx.rows = mesh.rank, local.shape[0]
-        return distributed.all_gather(mesh, local).reshape(-1, *local.shape[1:])
+        return distributed.all_gather(mesh, local, part="assembly").reshape(-1, *local.shape[1:])
 
     @staticmethod
     def backward(ctx, grad):
@@ -135,7 +135,8 @@ def _reduce_aux(allmap: dict, mesh: Mesh) -> dict:
     if not keys:
         return {}
     every = distributed.all_gather(
-        mesh, torch.stack([allmap[k].to(torch.float32).reshape(()) for k in keys]))
+        mesh, torch.stack([allmap[k].to(torch.float32).reshape(()) for k in keys]),
+        part="assembly")
     return {k: every[:, i] if k in PER_RANK else torch.amax(every[:, i])
             for i, k in enumerate(keys)}
 
@@ -366,11 +367,11 @@ class _GatherRecords(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows, mesh):
         ctx.mesh = mesh
-        return distributed.all_gather(mesh, rows).reshape(-1, rows.shape[1])
+        return distributed.all_gather(mesh, rows, part="exchange").reshape(-1, rows.shape[1])
 
     @staticmethod
     def backward(ctx, grad):
-        return distributed.reduce_scatter(ctx.mesh, grad.contiguous()), None
+        return distributed.reduce_scatter(ctx.mesh, grad.contiguous(), part="exchange"), None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -381,11 +382,11 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, msgs, mesh):
         ctx.mesh = mesh
-        return distributed.all_to_all(mesh, msgs)
+        return distributed.all_to_all(mesh, msgs, part="exchange")
 
     @staticmethod
     def backward(ctx, grad):
-        return distributed.all_to_all(ctx.mesh, grad.contiguous()), None
+        return distributed.all_to_all(ctx.mesh, grad.contiguous(), part="exchange"), None
 
 
 def _routed(rec_loc, meta, comp, mesh: Mesh, settings, k_loc: int, nty: int, rows_per: int,
@@ -398,7 +399,8 @@ def _routed(rec_loc, meta, comp, mesh: Mesh, settings, k_loc: int, nty: int, row
     kx = cb._round128(min(settings.xfer_capacity, k_loc))
     if balanced:
         # windows from every rank's survivor boxes, the merged set
-        boxes = distributed.all_gather(mesh, meta[:, 1:]).reshape(-1, 2).to(torch.int64)
+        boxes = distributed.all_gather(mesh, meta[:, 1:], part="exchange")
+        boxes = boxes.reshape(-1, 2).to(torch.int64)
         gx0, gx1 = binning.unpack_interval(boxes[:, 0])
         gy0, gy1 = binning.unpack_interval(boxes[:, 1])
         bnd = _balance_boundaries(gx0, gx1, gy0, gy1, torch.ones_like(gx0, dtype=torch.bool),
@@ -425,7 +427,7 @@ def _routed(rec_loc, meta, comp, mesh: Mesh, settings, k_loc: int, nty: int, row
         "_aux_xfer_count_max": torch.amax(cnts).to(f32),
     }
     return (_AllToAll.apply(rec_out, mesh).reshape(-1, cb.REC),
-            distributed.all_to_all(mesh, meta_out).reshape(-1, 3), bnd, aux)
+            distributed.all_to_all(mesh, meta_out, part="exchange").reshape(-1, 3), bnd, aux)
 
 
 def rasterize_splat_sharded(cam, settings, xyz, scaling, rotation, opacity, features,
@@ -474,7 +476,7 @@ def rasterize_splat_sharded(cam, settings, xyz, scaling, rotation, opacity, feat
                                           rows_per, balanced, cap)
     else:
         rec_m = _GatherRecords.apply(rec_loc, mesh)
-        meta_m = distributed.all_gather(mesh, meta).reshape(-1, 3)
+        meta_m = distributed.all_gather(mesh, meta, part="exchange").reshape(-1, 3)
         bnd, aux = None, {}
     order = torch.sort(meta_m[:, 0], stable=True).indices  # (depth, global id)
     rec_c = rec_m[order]

@@ -8,9 +8,9 @@
   * `Trainer`: the host loop: camera shuffling, the spherical-harmonics
     warm-up, densification, opacity resets, capacity growth, adaptive
     growth of the rasterizer's capacities from its overflow counters, a
-    rolling Mpix/s counter, and with a viewer (`gui`, one device only) the
-    frames its client asks for between steps (K1 three times, K2 once a
-    frame on the cuda backend).
+    rolling Mpix/s counter, and with a viewer (`gui`) the frames its client
+    asks for between steps (K1 three times, K2 once a frame on the cuda
+    backend, on every rank that renders it).
 
 On the cuda backend the step launches the select kernel three times and
 the forward and the backward blend kernel once each per view; the tiled
@@ -45,6 +45,22 @@ of the whole model. The live and dropped counts that decide growth are
 summed over the ranks, and growth pads each segment at its end.
 `whole_state` gathers the whole model into rank 0's host memory, for
 saving; `render_view` renders from the segments, every rank together.
+
+The viewer under a mesh: rank 0 alone owns the socket (`gui` a
+NetworkGUI there, a `network_gui.Follower` on every other rank). At each
+poll point rank 0 decides and broadcasts one control word in host memory
+(`distributed.host_mesh`): nothing pending, a frame (with its camera,
+resolution and scaling modifier), still paused, or resumed. A frame is
+one render of the whole model at the client's settings: rank 0's alone
+under tile rows, where it holds the whole model; every rank's, with the
+splats sharded, under splat sharding. While the client holds training
+paused, rank 0 sends a word at least every GUI_HEARTBEAT_S, so the other
+ranks wait for as long as the client likes without reaching the
+collective timeout. The word is a collective of its own: the step's one
+small collective, num_visible's all-reduce, runs under splat sharding
+alone, on the device, and before the poll point has anything to say. A
+rank other than 0 reads a word's code alone, on the host: a camera is
+built and moved to the device for a frame only.
 """
 
 from __future__ import annotations
@@ -67,6 +83,7 @@ from tpu2dgs_torch.parallel.distributed import Mesh
 from tpu2dgs_torch.raster.api import RasterSettings, render
 from tpu2dgs_torch.raster.cuda_backend import BX, _round_group
 from tpu2dgs_torch.train import losses
+from tpu2dgs_torch.viewer import network_gui
 
 # Backend capacity-overflow diagnostics (api.render output keys) and the
 # RasterSettings knob each one is healed by. The xfer keys belong to the
@@ -92,6 +109,13 @@ OVERFLOW_DEMAND_OF = {
     "grad_pack_overflow_frac": "grad_pack_max",
     "xfer_overflow_frac": "xfer_count_max",
 }
+
+# Under a mesh: the longest rank 0 lets the other ranks wait for its next
+# control word while the viewer holds training paused, well under
+# distributed.COLLECTIVE_TIMEOUT_S, at which their wait would fail.
+GUI_HEARTBEAT_S = 10.0
+# The control words rank 0 broadcasts at a poll point under a mesh.
+GUI_IDLE, GUI_FRAME, GUI_PAUSED, GUI_RESUME = 0, 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,6 +289,7 @@ class Trainer:
                 raise ValueError(f"the model is on {model.xyz.device}, the mesh's rank on "
                                  f"{mesh.device}")
         self.mesh = mesh
+        self._gui_ranks = None     # host_mesh(mesh) for the viewer's control words
         self.gui = gui             # a viewer.network_gui.NetworkGUI, polled every step
         self._gui_paused = False   # the client sent do_training=False
         self.source_path = ""      # the verify string sent to the viewer
@@ -273,6 +298,7 @@ class Trainer:
             # This rank's segment of the model (whole, on the rank's device
             # or in host memory) and fresh Adam moments for it: the Trainer
             # keeps no reference to the whole model.
+            self._whole_live = int(model.num_live())  # kept by each densification round
             self.model, self.adam = sharded.shard_model_state(model, None, mesh)
         else:
             self.model, self.adam = model, optim_lib.init_adam(model.params)
@@ -350,12 +376,14 @@ class Trainer:
 
     @gui.setter
     def gui(self, gui) -> None:
+        """Under a mesh every rank sets it together: rank 0 a NetworkGUI,
+        the others a network_gui.Follower (or every rank None)."""
         if gui is not None and self.mesh is not None:
-            # A frame would be a render every rank joins, and under splat
-            # sharding a rank holds only its segment of the model.
-            raise NotImplementedError(
-                "the viewer under a mesh is a later slice of the port: train with one "
-                "device, or without the viewer")
+            if (self.mesh.rank == 0) == isinstance(gui, network_gui.Follower):
+                raise ValueError("under a mesh rank 0 serves the viewer and every other rank "
+                                 f"follows it: rank {self.mesh.rank} was given {gui!r}")
+            if self._gui_ranks is None:
+                self._gui_ranks = distributed.host_mesh(self.mesh)
         self._gui = gui
 
     def _settings(self) -> RasterSettings:
@@ -537,6 +565,7 @@ class Trainer:
                     if self.shard_splats:  # every rank decides growth alike
                         info = densify_lib.DensifyInfo(*distributed.all_reduce(
                             self.mesh, torch.stack(list(info))).unbind())
+                        self._whole_live = int(info.num_live)
                     self.last_densify = info
                     # Children dropped for lack of free slots are capacity
                     # pressure too: under splat sharding a full segment
@@ -563,16 +592,14 @@ class Trainer:
                 metrics["mpix_per_s"] = self.mpix_s
             if self.log_fn is not None:
                 self.log_fn(it, metrics)
-            if self.gui is not None and self.gui.conn is None:
-                self.gui.try_connect()  # a client waiting: no wait if none is
-            viewed = self.gui is not None and self.gui.conn is not None
+            viewed = self._gui_connected()
             # The loss EMA is for display: read it now and then, so the
             # host does not wait for the device every step; every step
             # while a viewer client is connected, which shows it.
             if it % cfg.loss_sync_interval == 0 or it == end or viewed:
                 self.ema_loss = 0.4 * float(metrics["loss"]) + 0.6 * self.ema_loss
-            if viewed:
-                self._poll_gui(it, end)
+            if viewed or (self._gui_ranks is not None and self.gui is not None):
+                self._poll_gui(it, end)  # under a mesh every rank, whether or not a client is
             if progress and it % 200 == 0:
                 dt = time.perf_counter() - t0
                 own = " on this rank" if self.shard_splats else ""
@@ -581,39 +608,103 @@ class Trainer:
         self._stop_profile()  # training ended inside the profile window
         return self.model
 
+    def _gui_connected(self) -> bool:
+        """Whether a viewer client is connected to this process's socket,
+        accepting one that waits (no wait if none does)."""
+        gui = self.gui
+        if gui is None or isinstance(gui, network_gui.Follower):
+            return False
+        if gui.conn is None:
+            gui.try_connect()
+        return gui.conn is not None
+
+    def _live_count(self) -> int:
+        """The whole model's live splats, the viewer's "#": under splat
+        sharding the sum over the ranks as of the start or the last
+        densification round, the only points where it changes."""
+        return self._whole_live if self.shard_splats else int(self.model.num_live())
+
     def _poll_gui(self, it: int, end: int) -> None:
         """Serve the connected viewer's pending requests between steps
         (reference train.py:146-168): a frame of the model as it is, then
         back to training. Only a request already waiting is read, so an
         idle client does not hold training up; while the client has paused
         training (do_training=False), the poll waits for its next request
-        instead."""
-        gui = self.gui
+        instead, for as long as the client likes.
+
+        Under a mesh every rank polls at each step, whether or not a client
+        is connected. Rank 0 serves its client and tells the others what
+        happens, one word at a time: GUI_FRAME before a frame they render
+        with it (splat sharding), GUI_PAUSED while the client holds
+        training, at least every GUI_HEARTBEAT_S, and GUI_IDLE or
+        GUI_RESUME to train on, also after a lost connection or a malformed
+        message. The other ranks do what each word says until they are
+        told to train on."""
+        ctrl = self._gui_ranks
+        if ctrl is not None and ctrl.rank != 0:
+            while True:
+                word = distributed.broadcast(ctrl, network_gui.request_word(GUI_IDLE),
+                                             part="viewer")
+                code = int(word[0])  # a camera is read, and moved, for a frame alone
+                if code in (GUI_IDLE, GUI_RESUME):
+                    return
+                if code == GUI_FRAME:
+                    self._render_frame(*network_gui.read_request(word))
+        told = time.monotonic()
+
+        def tell(code, *request):
+            nonlocal told
+            if ctrl is not None:
+                distributed.broadcast(ctrl, network_gui.request_word(code, *request),
+                                      part="viewer")
+            told = time.monotonic()
+
+        def frame(cam, w, h, sm):
+            if self.shard_splats:  # every rank renders it with rank 0
+                tell(GUI_FRAME, cam, w, h, sm)
+            return self._render_frame(cam, w, h, sm)
+
+        gui, held = self.gui, self._gui_paused
         while gui.conn is not None:
             try:
-                timeout = None if self._gui_paused else 0.0
-                readable, _, _ = select.select([gui.conn], [], [], timeout)
+                if self._gui_paused and time.monotonic() - told >= GUI_HEARTBEAT_S:
+                    tell(GUI_PAUSED)
+                wait = GUI_HEARTBEAT_S - (time.monotonic() - told) if self._gui_paused else 0.0
+                readable, _, _ = select.select([gui.conn], [], [], max(wait, 0.0))
                 if not readable:
+                    if self._gui_paused:
+                        continue  # the next pass tells the others, still paused
                     break
                 do_training, keep_alive = gui.serve(
-                    self._render_frame, self.source_path,
-                    {"#": int(self.model.num_live()), "loss": self.ema_loss})
+                    frame, self.source_path, {"#": self._live_count(), "loss": self.ema_loss})
                 self._gui_paused = not do_training
+                held = held or self._gui_paused
                 if do_training and (it < end or not keep_alive):
                     break
             except (ConnectionError, OSError):
                 gui.disconnect()
                 self._gui_paused = False
+        tell(GUI_RESUME if held else GUI_IDLE)
 
     @torch.no_grad()
     def _render_frame(self, cam, width: int, height: int, scaling_modifier: float) -> dict:
-        """A viewer frame of the model at the client's resolution."""
+        """A viewer frame of the whole model at the client's resolution
+        (under splat sharding a collective, every rank calls it)."""
         settings = RasterSettings(width=width, height=height, sh_degree=self.active_sh_degree,
                                   scale_modifier=float(scaling_modifier), **self.raster_kwargs)
+        return self._render_whole(cam.to(self.device), settings)
+
+    def _render_whole(self, cam_arrays, settings: RasterSettings) -> dict:
+        """The whole model from `cam_arrays` at `settings`, on this rank's
+        device: under splat sharding from every rank's segment, with the
+        splats sharded as in training (a collective, every rank calls it);
+        else from this rank's model, with no collective."""
         p = self.model.params
-        return render(cam.to(self.device), settings, p.xyz, torch.exp(p.scaling), p.rotation,
+        return render(cam_arrays, settings, p.xyz, torch.exp(p.scaling), p.rotation,
                       torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p), self.bg,
-                      live=self.model.live, device=self.device)
+                      live=self.model.live, device=self.device,
+                      mesh=self.mesh if self.shard_splats else None,
+                      shard_splats=self.shard_splats)
 
     # -- rendering for eval -------------------------------------------------
 
@@ -629,11 +720,4 @@ class Trainer:
             kwargs["depth_ratio"] = depth_ratio
         settings = RasterSettings(width=self.width, height=self.height,
                                   sh_degree=self.active_sh_degree, **kwargs)
-        p = self.model.params
-        return render(
-            cam.arrays(self.device), settings,
-            p.xyz, torch.exp(p.scaling), p.rotation,
-            torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p),
-            self.bg, live=self.model.live, device=self.device,
-            mesh=self.mesh if self.shard_splats else None, shard_splats=self.shard_splats,
-        )
+        return self._render_whole(cam.arrays(self.device), settings)

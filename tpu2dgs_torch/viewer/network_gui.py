@@ -13,6 +13,10 @@ The received view matrix gets the reference's axis flips (columns 1, 2 of
 the view, column 1 of the view-projection) before use, and the camera is
 built on the GUI's device. `NetworkGUI.serve` answers one request with a
 frame; `cli.view` and `Trainer(gui=)` both serve through it.
+
+Under a mesh rank 0 alone owns the socket, and the other ranks hold a
+`Follower`; rank 0 tells them about each request as one word
+(`request_word`, `read_request`).
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ from tpu2dgs_torch.core.cameras import CameraArrays
 from tpu2dgs_torch.viewer.modes import render_net_image
 
 RENDER_ITEMS = ["RGB", "Alpha", "Normal", "Depth", "Edge", "Curvature"]
+
+# A request as rank 0 broadcasts it under a mesh: one float64 vector, which
+# holds the float32 camera, the client's scaling modifier and small integers
+# exactly: [code, width, height, scaling modifier, world_view (16),
+# full_proj (16), cam_center (3), tanfovx, tanfovy, znear, zfar].
+WORD_LEN = 43
 
 
 class NetworkGUI:
@@ -150,6 +160,36 @@ class NetworkGUI:
         if self.listener is not None:
             self.listener.close()
             self.listener = None
+
+
+class Follower:
+    """The viewer of a rank other than 0 under a mesh: rank 0 owns the
+    socket and serves the client; this rank follows the words it
+    broadcasts (`Trainer(gui=Follower())` on every rank but 0)."""
+
+    def __repr__(self) -> str:
+        return "Follower()"
+
+
+def request_word(code: int, cam: Optional[CameraArrays] = None, width: int = 0,
+                 height: int = 0, scaling_modifier: float = 1.0) -> torch.Tensor:
+    """`code` and a request as one float64 vector in host memory (a zero
+    camera when `cam` is None)."""
+    word = torch.zeros(WORD_LEN, dtype=torch.float64)
+    word[:4] = torch.tensor([code, width, height, scaling_modifier], dtype=torch.float64)
+    if cam is not None:
+        word[4:] = torch.cat([a.detach().reshape(-1).to("cpu", torch.float64) for a in cam])
+    return word
+
+
+def read_request(word: torch.Tensor) -> tuple:
+    """(camera in host memory, width, height, scaling modifier) of a
+    `request_word`; its code is `int(word[0])`."""
+    _, width, height, scaling_modifier = word[:4].tolist()
+    f32 = word[4:].to(torch.float32)
+    cam = CameraArrays(f32[0:16].reshape(4, 4), f32[16:32].reshape(4, 4), f32[32:35],
+                       *f32[35:39].unbind())
+    return cam, int(width), int(height), scaling_modifier
 
 
 def image_to_bytes(chw) -> bytes:
