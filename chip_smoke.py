@@ -15,7 +15,10 @@ main path:
            perturbed start, with all three loss terms on, two
            densification rounds, capacity growth and the overflow healing
            checks, and one of its gradients is held against the same
-           gradient through the plain versions.
+           gradient through the plain versions. Then a Trainer with
+           camera_batch 4 takes 6 steps of all four views at once (K1 12
+           / K2 4 / K3 4 launches a step), and one batched step's loss and
+           gradient are held against the mean of the four views'.
   rows     tile rows over ranks on the shell: the blend kernels at a
            tile-row offset (rank 1's strip of a two-way split) against
            their plain versions; strips and work windows for 2, 4 and 8
@@ -154,6 +157,7 @@ from tpu2dgs_torch.eval import (bin_probe, capk_probe, collective_probe, fidelit
                                 soak_train, strip_balance_probe, summary, synthetic, train_bench)
 from tpu2dgs_torch.eval.timing import Stopwatch, card, cuda_ms
 from tpu2dgs_torch.mesh import cull, extract, marching, tsdf
+from tpu2dgs_torch.model import optim as optim_lib
 from tpu2dgs_torch.model import splats as splats_lib
 from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.native import knn as native_knn
@@ -213,6 +217,11 @@ PROBE_RANKS = 8
 PROBE_SHAPES = ((14, 256), (17, 800))  # (N_log2, W)
 TRAIN_STEPS = 24
 TRAIN_VIEWS = 4  # one epoch of the camera shuffle: first and last 4 steps see every view
+# The batched run: camera_batch = TRAIN_VIEWS, every view in each of BATCH_STEPS
+# steps (no densification round among them); one batched step's loss against
+# the mean of the views' losses, relative.
+BATCH_STEPS = 6
+BATCH_LOSS_RTOL = 1e-5
 # The command-line phase: 4 views on disk (3 to train on, 1 held out), a
 # fresh run of 12 iterations with a checkpoint at 10, a resumed run of 10.
 CLI_VIEWS = 4
@@ -910,6 +919,112 @@ def train(caps):
           "raster_kwargs": trainer.raster_kwargs,
           "overflow": {k: float(view[k]) for k in OVERFLOW},
           "grad_vs_plain": grad_err})
+    batch = train_batch(caps)
+    return {k: total.get(k, 0) + batch.get(k, 0) for k in {*total, *batch}}
+
+
+def train_batch(caps):
+    """The Trainer with camera_batch = TRAIN_VIEWS on the same shell
+    training set: BATCH_STEPS steps of every view at once, no densification
+    round among them, then one batched step on a private copy of the model
+    against the mean of the views' losses and gradients through the
+    kernels."""
+    b = TRAIN_VIEWS
+    cams, model = synthetic.make_shell_training_set(W, H, N_SPLATS, views=b, **GT_CAPS)
+    cfg = loop.TrainConfig(
+        normal_from_iter=0, dist_from_iter=0, lambda_dist=100.0,
+        densify_from_iter=4, densification_interval=12, opacity_reset_interval=10_000,
+        loss_sync_interval=12, camera_batch=b)
+    events, launches, losses = [], [], []
+
+    def log_fn(it, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        launches.append(dict(native.LAUNCHES))
+        losses.append({k: metrics[k] for k in ("loss", "l1", "normal", "dist")})
+
+    trainer = loop.Trainer(model, cams, W, H, spatial_lr_scale=1.0, scene_extent=1.0,
+                           train_cfg=cfg, raster_kwargs=dict(caps, grad_pack_capacity=0),
+                           log_fn=log_fn)
+    trainer.active_sh_degree = 3
+
+    native.LAUNCHES.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    trainer.train(num_iters=BATCH_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    total = dict(native.LAUNCHES)
+
+    names = ("select_values", "blend_tiles", "blend_tiles_backward")
+    prev = dict.fromkeys(names, 0)
+    for it, snap in enumerate(launches, 1):
+        step = tuple(snap.get(k, 0) - prev[k] for k in names)
+        if step != (3 * b, b, b):
+            fail(f"batched train step {it} launched {dict(zip(names, step))}, "
+                 f"want {3 * b} / {b} / {b}")
+        prev = {k: snap.get(k, 0) for k in names}
+    step_ms = [a.elapsed_time(e) for a, e in zip([start, *events], events)]
+
+    loss = [{k: float(v) for k, v in d.items()} for d in losses]
+    if not all(math.isfinite(v) for d in loss for v in d.values()):
+        fail(f"batched train: non-finite loss {loss}")
+    m, adam = trainer.model, trainer.adam
+    for name, a in [*m.params._asdict().items(),
+                    *((f"mu.{k}", v) for k, v in adam.mu._asdict().items()),
+                    *((f"nu.{k}", v) for k, v in adam.nu._asdict().items())]:
+        if not bool(torch.isfinite(a).all()):
+            fail(f"batched train: non-finite {name}")
+    if adam.count != BATCH_STEPS or trainer.last_densify is not None:
+        fail(f"batched train: {adam.count} Adam steps, densify info {trainer.last_densify}")
+
+    # One batched step on a private copy of the trained model from fresh
+    # moments: its first moment is (1 - beta1) x the mean gradient over the
+    # views, held against the mean of each view's gradients.
+    settings = trainer._settings()
+    views = [(trainer._cam_arrays[i], trainer._gt_images[i]) for i in range(b)]
+    per_view = [loop.view_gradients(m, settings, cam, gt, trainer.bg, cfg.lambda_dssim,
+                                    cfg.lambda_normal, cfg.lambda_dist)
+                for cam, gt in views]
+    copy = splats_lib.SplatModel(splats_lib.SplatParams(*(a.detach().clone() for a in m.params)),
+                                 m.live.clone(), *(getattr(m, k).clone() for k in splats_lib.STATS))
+    fresh = optim_lib.init_adam(copy.params)
+    _, fresh, metrics = loop.train_step(
+        settings, trainer.opt_cfg, cfg.lambda_dssim, 1.0, copy, fresh,
+        [cam for cam, _ in views], [gt for _, gt in views], trainer.bg, 1.0,
+        cfg.lambda_normal, cfg.lambda_dist)
+    torch.cuda.synchronize()
+    want_loss = float(torch.stack([v[0] for v in per_view]).mean())
+    loss_rel = abs(float(metrics["loss"]) - want_loss) / abs(want_loss)
+    if not loss_rel <= BATCH_LOSS_RTOL:
+        fail(f"batched train: step loss {float(metrics['loss'])} against the views' mean "
+             f"{want_loss} (relative {loss_rel}, tol {BATCH_LOSS_RTOL})")
+    b1 = trainer.opt_cfg.beta1
+    grad_err = {}
+    for name, mu, *gs in zip(fresh.mu._fields, fresh.mu, *(v[2] for v in per_view)):
+        g = torch.where(m.live.reshape((-1,) + (1,) * (mu.dim() - 1)),
+                        torch.stack(gs).mean(dim=0), 0.0)
+        scale = float(g.abs().max())
+        grad_err[name] = {"max_abs_err": float((mu / (1 - b1) - g).abs().max()),
+                          "grad_max": scale}
+    bad = {k: v for k, v in grad_err.items()
+           if not (math.isfinite(v["max_abs_err"]) and v["grad_max"] > 0.0
+                   and v["max_abs_err"] <= GRAD_TOL * v["grad_max"])}
+    if bad:
+        fail(f"batched train: the step's gradient differs from the views' mean by more "
+             f"than {GRAD_TOL} of max|grad|: {bad}; all: {grad_err}")
+
+    steady = sorted(step_ms[1:])  # the first step warms up the allocator
+    emit({"phase": "train", "camera_batch": b, "steps": BATCH_STEPS, "card": card(),
+          "train_seconds": train_s, "pixels_per_step": b * W * H,
+          "mpix_per_s": BATCH_STEPS * b * W * H / train_s / 1e6,
+          "mpix_per_s_median_step": b * W * H / steady[len(steady) // 2] / 1e3,
+          "step_ms_median": steady[len(steady) // 2], "step_ms_min": steady[0],
+          "step_ms_max": steady[-1], "step_ms": step_ms, "launches": total,
+          "loss": [d["loss"] for d in loss], "loss_vs_view_mean_rel": loss_rel,
+          "grad_vs_view_mean": grad_err})
     return total
 
 

@@ -19,6 +19,7 @@ import torch
 from tests.test_tiled import _cam
 from tests.test_torch_core import to_torch
 from tests.test_torch_render import _multigroup
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import binning as jbin
 from tpu2dgs.raster import pallas_backend as jpb
 from tpu2dgs.raster import preprocess as jpre

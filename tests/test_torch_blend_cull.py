@@ -7,13 +7,15 @@ is only right if the cull is a superset of the per-pixel hit test: every
 (record, pixel) pair that passes `_splat_response`'s hit test must lie in a
 block whose bit is set, and pad entries past a tile's count must never
 pass. Small seeded bench-like
-and shell-like scenes, lists binned by the port's plain levels. Imports no
-JAX and compiles nothing.
+and shell-like scenes, lists binned by the port's plain levels; the
+mask's shape and the pad entries are tests/test_torch_blend_cull_mask.py's.
+Imports no JAX and compiles nothing.
 """
 
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs_torch.eval import synthetic
 from tpu2dgs_torch.raster import binning, cuda_backend, preprocess
 
@@ -44,18 +46,6 @@ def lists(request):
     return rec3, counts, nty, cov
 
 
-def test_subtile_coverage_shape(lists):
-    """One bit per (tile, sub-tile, entry); every sub-tile of a tile with a
-    list keeps something, and the cull clears most pairs."""
-    rec3, counts, _, cov = lists
-    t, _, capk = rec3.shape
-    assert cov.shape == (t, BX // SUB, capk) and cov.dtype == torch.bool
-    assert int(counts.max()) > cuda_backend.CHUNK  # lists span several chunks
-    live = int(counts.to(torch.int64).sum()) * (BX // SUB)
-    share = int(cov.sum()) / live
-    assert 0.0 < share < 0.9
-
-
 @pytest.mark.parametrize("rows", [BY, 4])
 def test_cull_keeps_every_hit(lists, rows):
     """Every (record, pixel) pair that passes the blend's hit test lies in
@@ -83,17 +73,3 @@ def test_cull_keeps_every_hit(lists, rows):
             f"entries {j0}+: {int(missed.sum())} hitting pixels in culled blocks")
         n_hits += int(hit.sum())
     assert n_hits > 0
-
-
-def test_pad_entries_never_pass(lists):
-    """Entries past a tile's count, and the never-hit pad records there,
-    have no bit set."""
-    rec3, counts, nty, cov = lists
-    capk = rec3.shape[2]
-    past = torch.arange(capk)[None, :] >= counts.to(torch.int64)[:, None]
-    assert bool(past.any())
-    assert not bool((cov & past[:, None, :]).any())
-    # the pads' own coverage, with every entry counted live
-    full = torch.full_like(counts, capk)
-    pads_cov = cuda_backend.subtile_coverage(rec3, full, nty) & past[:, None, :]
-    assert not bool(pads_cov.any())

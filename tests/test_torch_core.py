@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tests.test_tiled import _cam, _random_scene
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.core import sh as jsh
 from tpu2dgs.core import transforms as jtf

@@ -17,7 +17,7 @@ import torch
 
 from tests.test_tiled import KEYS, _random_scene
 from tests.test_torch_core import port_cam, to_torch
-from tests.test_torch_oracle import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs_torch.core.cameras import CameraArrays
 from tpu2dgs_torch.raster import api as tapi
 

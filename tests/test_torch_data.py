@@ -16,6 +16,7 @@ import pytest
 from PIL import Image
 
 from tests.test_data import _make_colmap_dataset
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.data import colmap as jcolmap
 from tpu2dgs.data import paths as jpaths
 from tpu2dgs.data import scene as jscene

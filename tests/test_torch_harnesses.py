@@ -23,6 +23,7 @@ from unittest import mock
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs_torch.eval import dtu_eval, m360_eval, nerf_eval, summary, tnt_eval
 
 SCRIPTS = os.path.join(os.path.dirname(__file__), os.pardir, "scripts")
@@ -35,14 +36,6 @@ import tnt_eval as jtnt  # noqa: E402
 
 SCORERS = {"eval_dtu_scene.py": "tpu2dgs_torch.eval.dtu_scene",
            "eval_tnt_scene.py": "tpu2dgs_torch.eval.tnt_scene"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _script_commands(module, argv) -> list[str]:

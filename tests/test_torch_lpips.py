@@ -14,20 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.eval import lpips as jlpips
 from tpu2dgs_torch.cli import metrics as tcli_metrics
 from tpu2dgs_torch.data.paths import save_img_u8
 from tpu2dgs_torch.eval import lpips as tlpips
 
 RES = 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,7 @@
-"""tpu2dgs_torch.mesh against tpu2dgs.mesh, on the CPU, at the shapes of
-tests/test_mesh.py.
+"""tpu2dgs_torch.mesh's fusion and culling against tpu2dgs.mesh, on the CPU,
+at the shapes of tests/test_mesh.py (marching and contraction are
+tests/test_torch_mesh_marching.py's, post-processing and the PLY codec
+tests/test_torch_mesh_post.py's).
 
 Both packages get the same numpy inputs: analytic depth maps of a sphere
 seen from orbit cameras (each package builds its own Camera from the same
@@ -34,6 +36,7 @@ import torch
 
 from tests.test_mesh import _sphere_grid
 from tests.test_train import _orbit_camera
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.mesh import cull as jcull
 from tpu2dgs.mesh import extract as jextract
@@ -181,46 +184,6 @@ class Marching:
         monkeypatch.setattr(module, "marching_tetrahedra", spy)
 
 
-# -- marching tetrahedra --------------------------------------------------------
-
-
-def _marching_case(name):
-    field, ax = _sphere_grid()
-    spacing = (ax[1] - ax[0],) * 3
-    if name == "sphere":
-        return field, dict(origin=(-1, -1, -1), spacing=spacing)
-    if name == "masked":
-        mask = np.random.default_rng(1).random(field.shape) > 0.2
-        return field, dict(origin=(-1, -1, -1), spacing=spacing, mask=mask)
-    if name == "fully_masked":
-        return field, dict(mask=np.zeros_like(field, bool))
-    return np.ones((8, 8, 8)), {}  # no crossing
-
-
-@pytest.mark.parametrize("case", ["sphere", "masked", "fully_masked", "no_crossing"])
-def test_marching_matches_jax(case):
-    field, kw = _marching_case(case)
-    tv, tf = tmarching.marching_tetrahedra(field, 0.0, **kw)
-    jv, jf = jmarching.marching_tetrahedra(field, 0.0, **kw)
-    np.testing.assert_array_equal(tv, jv)
-    np.testing.assert_array_equal(tf, jf)
-    assert (tf.shape[0] > 500) == (case in ("sphere", "masked"))
-
-
-def test_contract_uncontract_match_jax():
-    rng = np.random.default_rng(0)
-    x = rng.normal(scale=2.0, size=(1000, 3)).astype(np.float32)
-    x[:10] *= 1e-13  # the 1e-12 floor of the norm
-    y = ttsdf.contract(torch.from_numpy(x))
-    np.testing.assert_allclose(y.numpy(), np.asarray(jtsdf.contract(jnp.asarray(x))),
-                               rtol=1e-6, atol=1e-6)
-    back = ttsdf.uncontract(y)
-    np.testing.assert_allclose(back.numpy(),
-                               np.asarray(jtsdf.uncontract(jnp.asarray(y.numpy()))),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(back.numpy(), x, rtol=1e-4, atol=1e-4)
-
-
 # -- bounded fusion -------------------------------------------------------------
 
 
@@ -325,7 +288,7 @@ def test_extract_mesh_unbounded_matches_jax(big_views, res, monkeypatch):
     _assert_meshes_match(port, ref, step * tex.radius, excused)
 
 
-# -- culling, post-processing, PLY ---------------------------------------------------
+# -- culling ---------------------------------------------------------------------
 
 
 def test_cull_mesh_matches_jax(views):
@@ -369,27 +332,6 @@ def _remaining(seen, faces):
     return kept
 
 
-def test_cull_colours_follow_vertices():
-    """A vertex seen by the view but left in no kept face (its one face
-    holds a hidden vertex) is dropped with its colour: colours indexed by
-    the returned mask stay with their vertices through post-processing."""
-    cam = dict(uid=0, image_name="c", R=np.eye(3), T=np.zeros(3),
-               fovx=np.pi / 2, fovy=np.pi / 2, width=W, height=H)
-    depth = np.full((1, H, W), 2.0, np.float32)
-    pts = np.array([[0.0, 0.0, 1.0], [0.1, 0.0, 1.0], [0.0, 0.1, 1.0],
-                    [0.0, 0.0, 3.0], [0.1, 0.1, 1.0]], np.float32)
-    tri = np.array([[0, 1, 2], [4, 3, 0]])  # vertex 4 is seen, its face is not
-    colors = np.arange(15, dtype=np.float64).reshape(5, 3) / 15.0
-    v2, f2, kept = tcull.cull_mesh(pts, tri, [tcam.Camera(**cam)], [depth], eps=0.05)
-    seen = jcull.cull_mesh(pts, tri, [jcam.Camera(**cam)], [depth], eps=0.05)[2]
-    np.testing.assert_array_equal(seen, [True, True, True, False, True])
-    np.testing.assert_array_equal(kept, [True, True, True, False, False])
-    c2 = colors[kept]
-    v3, f3, c3 = textract.post_process_mesh(v2, f2, c2, min_faces=1)
-    np.testing.assert_array_equal(v3, pts[:3])
-    np.testing.assert_array_equal(c3, colors[:3])
-
-
 def test_cli_culled_mesh_colours_follow_vertices(big_views, tmp_path, monkeypatch):
     """cli.render's mesh branch, unbounded with --cull_views 1: every vertex
     of fuse_unbounded_post.ply carries the colour that the same vertex has
@@ -422,57 +364,3 @@ def test_cli_culled_mesh_colours_follow_vertices(big_views, tmp_path, monkeypatc
     index = {tuple(v): i for i, v in enumerate(fv)}
     at = np.array([index[tuple(v)] for v in pv])
     np.testing.assert_array_equal(pc, fc[at])
-
-
-def _floater_mesh():
-    field, ax = _sphere_grid(n=24)
-    verts, faces = jmarching.marching_tetrahedra(field, origin=(-1, -1, -1),
-                                                 spacing=(ax[1] - ax[0],) * 3)
-    verts = np.concatenate([verts, [[5, 5, 5], [5.1, 5, 5], [5, 5.1, 5]]])
-    faces = np.concatenate([faces, [[len(verts) - 3, len(verts) - 2, len(verts) - 1]]])
-    colors = np.random.default_rng(2).random((len(verts), 3))
-    return verts, faces, colors
-
-
-@pytest.mark.parametrize("num_cluster", [1, 50])
-def test_post_process_matches_jax(num_cluster):
-    verts, faces, colors = _floater_mesh()
-    got = textract.post_process_mesh(verts, faces, colors, num_cluster=num_cluster)
-    want = jextract.post_process_mesh(verts, faces, colors, num_cluster=num_cluster)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
-    assert got[1].shape[0] == faces.shape[0] - 1  # the floater's face is dropped
-    assert textract.post_process_mesh(verts, faces[:0], None)[1].shape == (0, 3)
-
-
-@pytest.mark.parametrize("with_colors", [True, False])
-def test_mesh_ply_both_ways(tmp_path, with_colors):
-    verts, faces, colors = _floater_mesh()
-    colors = colors if with_colors else None
-    tpath, jpath = str(tmp_path / "port.ply"), str(tmp_path / "jax.ply")
-    textract.write_mesh_ply(tpath, verts, faces, colors)
-    jextract.write_mesh_ply(jpath, verts, faces, colors)
-    with open(tpath, "rb") as a, open(jpath, "rb") as b:
-        assert a.read() == b.read()
-    for read in (textract.read_mesh_ply, jextract.read_mesh_ply):
-        for path in (tpath, jpath):
-            rv, rf = read(path)
-            np.testing.assert_array_equal(rv, verts.astype(np.float32).astype(np.float64))
-            np.testing.assert_array_equal(rf, faces)
-
-
-@pytest.mark.parametrize("unbounded", [False, True])
-def test_mesh_profile_runs_on_cpu(unbounded):
-    """eval.mesh_profile's mesh run at a tiny size: every stage timed, the
-    kept maps counted, a mesh fused and post-processed."""
-    from tpu2dgs_torch.eval import mesh_profile, synthetic
-
-    _, scene = synthetic.make_shell_scene(W, H, 2048, seed=0, device="cpu")
-    got = mesh_profile.mesh_run(scene, 2, 24, unbounded, w=W, h=H, device="cpu")
-    s = got["seconds"]
-    assert {"reconstruction", "extract", "fusion", "marching", "extract_rest",
-            "post_process", "write_ply"} <= s.keys()
-    assert s["fusion"] + s["marching"] <= s["extract"] <= got["total_seconds"]
-    assert s["fusion_per_view"] == s["fusion"] / 2
-    assert got["map_bytes"] == 2 * 5 * W * H * 4  # rgb, depth and alpha of each view
-    assert 0 < got["post"]["faces"] <= got["fused"]["faces"]

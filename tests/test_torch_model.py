@@ -11,6 +11,7 @@ import torch
 
 from tests.test_tiled import _cam, _random_scene, _settings
 from tests.test_torch_core import port_cam, to_torch
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.model import splats as jsplats
 from tpu2dgs.raster.api import render as jrender
 from tpu2dgs_torch.model import convert

@@ -15,11 +15,8 @@ Each file of these tests keeps to six items or fewer: the test runner
 queues files by their number of items, and more would put these compiles
 ahead of the suite's longest file.
 
-PyTorch runs on one thread here (`one_torch_thread`): in a process that
-also runs JAX, about half the processes got an intra-op worker thread whose
-torch.exp was off by up to 1.5e-4 relative on its share of a tensor (on an
-8-core x86 CPU with AVX-512; one thread never showed it), more than these
-tolerances allow.
+PyTorch runs on one thread here (tests/test_torch_threads.py's
+`one_torch_thread`, which says why).
 """
 
 import jax
@@ -31,6 +28,7 @@ import torch
 from tests.test_oracle import _single_splat
 from tests.test_tiled import _cam, _random_scene, _settings, KEYS
 from tests.test_torch_core import port_cam, to_torch
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import blend as jblend
 from tpu2dgs.raster import oracle as joracle
 from tpu2dgs.raster import preprocess as jpre
@@ -43,14 +41,6 @@ from tpu2dgs_torch.raster.preprocess import SplatScreen
 TOL = dict(rtol=1e-5, atol=1e-5)
 W = H = 64
 BG = np.array([0.1, 0.2, 0.3], np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_render(cam, settings, args, bg, **kw):

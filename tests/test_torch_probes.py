@@ -24,6 +24,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import select_kernel as jselect
 from tpu2dgs_torch.eval import bin_probe, reduce_probe, reduce_turns
 from tpu2dgs_torch.eval import synthetic

@@ -24,10 +24,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.raster.api import RasterSettings as JaxSettings
 from tpu2dgs.raster.api import render as jrender
-from tests.test_torch_oracle import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs_torch.eval import quality_gate as tq
 
 SCRIPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -18,10 +18,10 @@ from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import tpu2dgs
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs_torch.eval import (capk_probe, fidelity_probe, soak_train, strip_balance_probe,
                                 train_bench)
 from tpu2dgs_torch.train.loop import TrainConfig
@@ -30,14 +30,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir, "scripts")
 import soak_train as jsoak  # noqa: E402
 import strip_balance_probe as jstrip  # noqa: E402
 import train_bench as jbench  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _Stop(Exception):

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 from tpu2dgs_torch.raster import select_kernel as sk
 
 CHUNK = sk.CHUNK

@@ -22,7 +22,7 @@ own full-frame render.
 
 One scene, 150x160 pixels (2 x 10 tiles) of 150 splats, through JAX's
 preprocess, once per module. PyTorch runs on one thread
-(tests/test_torch_oracle.py's `one_torch_thread`).
+(tests/test_torch_threads.py's `one_torch_thread`).
 """
 
 import jax
@@ -33,7 +33,7 @@ import torch
 
 from tests.test_tiled import _cam, _random_scene, _settings
 from tests.test_torch_core import to_torch
-from tests.test_torch_oracle import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import binning as jbin
 from tpu2dgs.raster import pallas_backend as jpb
 from tpu2dgs.raster import preprocess as jpre

@@ -23,7 +23,7 @@ import torch
 
 from tests.test_tiled import _cam, _random_scene, _settings, KEYS
 from tests.test_torch_core import port_cam, to_torch
-from tests.test_torch_oracle import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import binning as jbin
 from tpu2dgs.raster import preprocess as jpre
 from tpu2dgs.raster import select_kernel as jsel

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.viewer import modes as jmodes
 from tpu2dgs.viewer import network_gui as jgui
@@ -36,14 +37,6 @@ from tpu2dgs_torch.viewer import network_gui as tgui
 
 ITEMS = ["RGB", "Alpha", "Normal", "Depth", "Edge", "Curvature"]
 CAPS = dict(bin_capacity=256, tile_capacity=256, col_capacity=256)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- a viewer client ------------------------------------------------------------

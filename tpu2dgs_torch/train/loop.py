@@ -398,10 +398,12 @@ class Trainer:
         return int(self._cam_stack.pop())
 
     def _peek_camera_indices(self, k: int) -> list[int]:
-        """The next up-to-k indices _next_camera_index will return
-        (refilling the shuffled stack if empty): the prefetch targets.
-        Looks only within the current epoch's stack: the next epoch's
-        permutation is not drawn early."""
+        """The next up-to-k indices _next_camera_index will return: the
+        prefetch targets. Looks only within the current epoch's stack, so
+        near an epoch's end it returns fewer than k. An empty stack is
+        refilled here with the next epoch's permutation, the one
+        _next_camera_index would draw next, so the camera order is the
+        same either way."""
         if not self._cam_stack:
             self._cam_stack = list(self.rng.permutation(len(self.cameras)))
         return [int(x) for x in self._cam_stack[-k:][::-1]]
