@@ -17,12 +17,10 @@ import pytest
 import torch
 
 from tests.test_tiled import _cam
-from tests.test_torch_core import to_torch
+from tests.test_torch_core import jax_compact, jax_pack, jax_preprocess, to_torch
 from tests.test_torch_render import _multigroup
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
-from tpu2dgs.raster import binning as jbin
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import pallas_backend as jpb
-from tpu2dgs.raster import preprocess as jpre
 from tpu2dgs_torch.raster import cuda_backend as tcb
 
 
@@ -37,9 +35,9 @@ def lists():
     _, _, scene, _, caps = _multigroup()
     w, h = 150, 48
     n = scene[0].shape[0]
-    splats = jpre.preprocess(*scene, _cam(w, h), w, h, 3)
-    comp = jbin.compact_visible(splats, n)
-    rec = jpb.pack_records(splats)
+    splats = jax_preprocess(*scene, _cam(w, h), w, h, 3)
+    comp = jax_compact(splats, n)
+    rec = jax_pack(splats)
     nbx, nty = -(-w // jpb.BX), -(-h // jpb.BY)
     cap = min(caps["tile_capacity"], n)
     bin_cap = max(min(caps["bin_capacity"], n), cap)

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from tests.test_data import _make_colmap_dataset
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.cli import config as jcfg
 from tpu2dgs.model import splats as jsplats
 from tpu2dgs.train import checkpoint as jckpt

@@ -11,7 +11,7 @@ import torch
 
 from tests.test_data import _make_colmap_dataset
 from tests.test_torch_cli import TRAIN_FLAGS
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.cli import config as jcfg
 from tpu2dgs_torch.cli import config as tcfg
 from tpu2dgs_torch.cli import convert as tcli_convert

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_cli import _npz
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs import native as jnative
 from tpu2dgs.model import optim as joptim
 from tpu2dgs.model import splats as jsplats

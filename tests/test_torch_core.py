@@ -7,17 +7,20 @@ isolation from JAX and its refusal to fall back to the CPU."""
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tests.test_tiled import _cam, _random_scene
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.core import sh as jsh
 from tpu2dgs.core import transforms as jtf
 from tpu2dgs.raster import api as japi
+from tpu2dgs.raster import binning as jbin
+from tpu2dgs.raster import pallas_backend as jpb
 from tpu2dgs.raster import preprocess as jpre
 import tpu2dgs_torch
 from tpu2dgs_torch.core import cameras as tcam
@@ -25,6 +28,15 @@ from tpu2dgs_torch.core import sh as tsh
 from tpu2dgs_torch.core import transforms as ttf
 from tpu2dgs_torch.raster import api as tapi
 from tpu2dgs_torch.raster import preprocess as tpre
+
+
+# tpu2dgs's preprocess, compaction and record packing, each compiled as one
+# program (width, height, SH degree and the compaction's length static): op
+# by op each compiles every one of its operations alone. The port is held
+# to the same functions of the same inputs.
+jax_preprocess = jax.jit(jpre.preprocess, static_argnums=(6, 7, 8))
+jax_compact = jax.jit(jbin.compact_visible, static_argnums=1)
+jax_pack = jax.jit(jpb.pack_records)
 
 
 def to_torch(a):

@@ -1,8 +1,9 @@
 """tpu2dgs_torch CUDA kernels vs their plain PyTorch versions, on the GPU.
 
-Marked `cuda`: each test skips without a CUDA device. The file imports
-nothing of JAX, so it also runs where JAX is not installed; from the repo
-root on the machine with the card:
+Marked `cuda`: without a CUDA device the module skips at collection, so
+a CPU run queues none of its items. The file imports nothing of JAX, so
+it also runs where JAX is not installed; from the repo root on the
+machine with the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -15,15 +16,16 @@ from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.raster import api, binning, cuda_backend, preprocess, select_kernel
 from tpu2dgs_torch.raster.common import ALPHA_MIN, CUTOFF, FILTER_INV_SQUARE
 from tpu2dgs_torch.train import loop
-from test_torch_select_chunks import CASES as CHUNK_CASES  # tests/ is on sys.path
+from torch_chunk_cases import CASES as CHUNK_CASES  # tests/ is on sys.path
+
+if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device", allow_module_level=True)
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
 def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
     return torch.device("cuda")
 
 
@@ -88,7 +90,7 @@ SELECT_CASES = {
     "box_overflow": lambda dev: _box_case(dev, 128),
     "exact_rec_pads": _exact_case,
     "l1_columns": _l1_case,
-    # the CPU cases of the chunked compaction (tests/test_torch_select_chunks.py)
+    # the CPU cases of the chunked compaction (tests/torch_chunk_cases.py)
     **{name: build for name, (build, _) in CHUNK_CASES.items()},
 }
 

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 from tests.test_tnt import _similarity
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.eval import geometry as jgeo
 from tpu2dgs.eval import trajectory as jtio
 from tpu2dgs_torch.eval import geometry as tgeo

@@ -14,7 +14,7 @@ import scripts.eval_dtu_scene as jdtu
 import scripts.eval_tnt_scene as jtnt
 from tests.test_tnt import _rot, _similarity
 from tests.test_torch_geometry import _equal, _sphere_mesh
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.eval import trajectory as jtio
 from tpu2dgs_torch.data.scene import store_ply
 from tpu2dgs_torch.eval import dtu_scene as tdtu

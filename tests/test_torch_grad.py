@@ -14,7 +14,7 @@ import torch
 
 from tests.test_tiled import _cam, _random_scene, _settings
 from tests.test_torch_core import port_cam, to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster.api import render as jrender
 from tpu2dgs_torch.raster import api as tapi
 
@@ -41,7 +41,7 @@ def grads():
                       jnp.asarray(BG), mean2d_offset=args[5])
         return _loss_terms(out, jnp)
 
-    gj = jax.grad(loss_j, argnums=tuple(range(6)))(*scene, jnp.asarray(offset))
+    gj = jax.jit(jax.grad(loss_j, argnums=tuple(range(6))))(*scene, jnp.asarray(offset))
 
     targs = [to_torch(a).requires_grad_() for a in (*scene, offset)]
     out = tapi.render(port_cam(W, H), tapi.RasterSettings(W, H, **CAPS), *targs[:5],

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.eval import lpips as jlpips
 from tpu2dgs_torch.cli import metrics as tcli_metrics
 from tpu2dgs_torch.data.paths import save_img_u8

@@ -9,7 +9,7 @@ import torch
 
 from tests.test_mesh import _sphere_grid
 from tests.test_torch_mesh import H, W
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.mesh import cull as jcull
 from tpu2dgs.mesh import marching as jmarching

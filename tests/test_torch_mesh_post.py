@@ -8,7 +8,7 @@ import pytest
 
 from tests.test_mesh import _sphere_grid
 from tests.test_torch_mesh import H, W
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.mesh import extract as jextract
 from tpu2dgs.mesh import marching as jmarching
 from tpu2dgs_torch.mesh import extract as textract

@@ -1,22 +1,32 @@
 """tpu2dgs_torch model store vs tpu2dgs: PLY files written by either
 package load bit-equal in the other, weights carried across with
 model.convert render what JAX renders, and an empty model renders pure
-background."""
+background. Also the run's JAX compilation cache (tests/test_torch_threads.py):
+the file's compiles go to the run's own directory, and the settings come
+back when the cache is left."""
+
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
 
 from tests.test_tiled import _cam, _random_scene, _settings
 from tests.test_torch_core import port_cam, to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import CACHE_SETTINGS, compile_cache
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.model import splats as jsplats
 from tpu2dgs.raster.api import render as jrender
 from tpu2dgs_torch.model import convert
 from tpu2dgs_torch.model import splats as tsplats
 from tpu2dgs_torch.raster import api as tapi
+
+# The cache settings as the session has them before any file's fixture:
+# read when the run imports this file to collect it, before any test runs.
+SESSION_CACHE = {name: getattr(jax.config, name) for name in CACHE_SETTINGS}
 
 
 def _jax_model(n=40, capacity=64, seed=5):
@@ -77,9 +87,10 @@ def test_convert_round_trip_and_render_matches_jax():
     bg = np.array([0.05, 0.1, 0.2], np.float32)
     caps = dict(bin_capacity=128, tile_capacity=128)
     p = jm.params
-    out_j = jrender(_cam(w, h), _settings(w, h, "pallas", debug=True, **caps),
-                    p.xyz, jnp.exp(p.scaling), p.rotation, jax.nn.sigmoid(p.opacity[:, 0]),
-                    jsplats.features(p), jnp.asarray(bg), live=jm.live)
+    out_j = jax.jit(lambda p, live: jrender(
+        _cam(w, h), _settings(w, h, "pallas", debug=True, **caps), p.xyz, jnp.exp(p.scaling),
+        p.rotation, jax.nn.sigmoid(p.opacity[:, 0]), jsplats.features(p), jnp.asarray(bg),
+        live=live))(p, jm.live)
     q = tm.params
     with torch.no_grad():  # serving: render is differentiable, the parameters require grad
         out_t = tapi.render(port_cam(w, h), tapi.RasterSettings(w, h, **caps),
@@ -107,3 +118,44 @@ def test_empty_model_renders_background():
     assert float(out["rend_alpha"].abs().max()) == 0.0
     assert all(bool(torch.isfinite(v).all()) for v in out.values()
                if v.dtype.is_floating_point)
+
+
+def _settings_now():
+    return {name: getattr(jax.config, name) for name in CACHE_SETTINGS}
+
+
+def test_compile_cache_is_the_runs_and_restores(jax_compile_cache, tmp_path_factory, tmp_path):
+    """The module's compiles go to the run's own directory (never the
+    session's setting; under xdist named by the run's id beside the
+    workers' temporary directories, else in the session's), and
+    compile_cache, entered from the session's settings, writes there and
+    leaves all three settings as it found them, the cache reset."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    base = tmp_path_factory.getbasetemp()
+    assert jax.config.jax_compilation_cache_dir == str(jax_compile_cache)
+    assert str(jax_compile_cache) != SESSION_CACHE["jax_compilation_cache_dir"]
+    assert jax_compile_cache == (base.parent / f"jax-cache-{run}" if run
+                                 else base / "jax-cache")
+    assert jax.config.jax_persistent_cache_min_compile_time_secs == 0.0
+    before = set(os.listdir(jax_compile_cache))
+    jax.jit(lambda x: x * 3.0 + 1.0)(jnp.arange(5.0)).block_until_ready()
+    assert set(os.listdir(jax_compile_cache)) > before
+
+    inside = _settings_now()
+    for name, value in SESSION_CACHE.items():
+        jax.config.update(name, value)
+    compilation_cache.reset_cache()
+    own = tmp_path / "own"
+    own.mkdir()
+    try:
+        with compile_cache(own):
+            jax.jit(lambda x: x - 2.0)(jnp.arange(4.0)).block_until_ready()
+            assert os.listdir(own)
+        assert _settings_now() == SESSION_CACHE
+        written = set(os.listdir(own))
+        jax.jit(lambda x: x / 5.0)(jnp.arange(4.0)).block_until_ready()
+        assert set(os.listdir(own)) == written  # no cache once it is left
+    finally:
+        for name, value in inside.items():
+            jax.config.update(name, value)
+        compilation_cache.reset_cache()

@@ -27,8 +27,8 @@ import torch
 
 from tests.test_oracle import _single_splat
 from tests.test_tiled import _cam, _random_scene, _settings, KEYS
-from tests.test_torch_core import port_cam, to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_core import jax_preprocess, port_cam, to_torch
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import blend as jblend
 from tpu2dgs.raster import oracle as joracle
 from tpu2dgs.raster import preprocess as jpre
@@ -56,7 +56,7 @@ def chunk_inputs():
     (opacity raised to at least 0.9) against every pixel of a 40x24
     image."""
     w, h = 40, 24
-    splats = jpre.preprocess(*_random_scene(n=200, seed=3), _cam(w, h), w, h, 3)
+    splats = jax_preprocess(*_random_scene(n=200, seed=3), _cam(w, h), w, h, 3)
     order = np.argsort(np.asarray(splats.depth), kind="stable")[:32]
     pick = {f: np.asarray(getattr(splats, f))[order]
             for f in ("tmat", "filter_center", "opacity", "color", "normal")}
@@ -180,8 +180,8 @@ def test_rasterize_oracle_matches_jax():
 
 
 def _both(w, h, scene, bg=np.zeros(3, np.float32)):
-    jout = jrender(_cam(w, h), _settings(w, h, "oracle", sh_degree=0),
-                   *(jnp.asarray(np.asarray(a)) for a in scene), jnp.asarray(bg))
+    jout = jax.jit(lambda *a: jrender(_cam(w, h), _settings(w, h, "oracle", sh_degree=0), *a))(
+        *(jnp.asarray(np.asarray(a)) for a in scene), jnp.asarray(bg))
     tout = _port_render(port_cam(w, h), tapi.RasterSettings(w, h, sh_degree=0, backend="oracle"),
                         [to_torch(np.asarray(a)) for a in scene], to_torch(bg))
     for k in KEYS + ["depth_expected", "mean2d"]:

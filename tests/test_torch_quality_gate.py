@@ -20,11 +20,12 @@ import importlib.util
 import itertools
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.raster.api import RasterSettings as JaxSettings
 from tpu2dgs.raster.api import render as jrender
@@ -90,8 +91,8 @@ def test_ground_truth_view_matches_jax():
     jc = jcam.Camera(uid=cam.uid, image_name=cam.image_name, R=cam.R, T=cam.T,
                      fovx=cam.fovx, fovy=cam.fovy, width=32, height=32)
     st = JaxSettings(width=32, height=32, sh_degree=0, backend="tiled", **tq.GT_CAPS)
-    want = jrender(jc.arrays(), st, *(jnp.asarray(a) for a in (
-        xyz, scaling, rotation, opacity, tq.shell_features(rgb))), jnp.zeros(3))["render"]
+    want = jax.jit(lambda *a: jrender(jc.arrays(), st, *a, jnp.zeros(3))["render"])(
+        *(jnp.asarray(a) for a in (xyz, scaling, rotation, opacity, tq.shell_features(rgb))))
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-4)
     assert float(got.max()) > 0.3  # the shell fills the view
 

@@ -49,7 +49,7 @@ import torch
 
 from tests.test_data import _make_colmap_dataset
 from tests.test_torch_cli import TRAIN_FLAGS
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_splat_sharded import _training
 from tpu2dgs.eval import synthetic as jsynthetic
 from tpu2dgs.parallel.sharded import make_mesh

@@ -6,17 +6,16 @@ tests/test_torch_render_options.py's."""
 
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tests.test_tiled import KEYS, _cam, _random_scene, _settings
-from tests.test_torch_core import port_cam, to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
-from tpu2dgs.raster import binning as jbin
+from tests.test_torch_core import jax_compact, jax_pack, jax_preprocess, port_cam, to_torch
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import pallas_backend as jpb
-from tpu2dgs.raster import preprocess as jpre
 from tpu2dgs.raster.api import render as jrender
 from tpu2dgs_torch.raster import api as tapi
 from tpu2dgs_torch.raster import binning as tbin
@@ -54,10 +53,10 @@ SCENES = {"basic": _basic, "multigroup": _multigroup}
 def basic_binning():
     """The basic scene through JAX preprocess + binning (interpret mode)."""
     w, h, scene, _, caps = _basic()
-    splats = jpre.preprocess(*scene, _cam(w, h), w, h, 3)
+    splats = jax_preprocess(*scene, _cam(w, h), w, h, 3)
     n = scene[0].shape[0]
-    comp = jbin.compact_visible(splats, n)
-    rec = jpb.pack_records(splats)
+    comp = jax_compact(splats, n)
+    rec = jax_pack(splats)
     nbx, nty = -(-w // jpb.BX), -(-h // jpb.BY)
     cap = min(caps["tile_capacity"], n)
     bin_cap = max(min(caps["bin_capacity"], n), cap)
@@ -122,8 +121,8 @@ def test_blend_plain_matches_jax(basic_binning):
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_render_matches_jax_pallas(scene):
     w, h, arrays, bg, caps = SCENES[scene]()
-    out_j = jrender(_cam(w, h), _settings(w, h, "pallas", debug=True, **caps),
-                    *arrays, jnp.asarray(bg))
+    out_j = jax.jit(lambda *a: jrender(_cam(w, h), _settings(w, h, "pallas", debug=True, **caps),
+                                       *a, jnp.asarray(bg)))(*arrays)
     out_t = tapi.render(port_cam(w, h), tapi.RasterSettings(w, h, **caps),
                         *map(to_torch, arrays), to_torch(bg), device="cpu")
     for k in KEYS:

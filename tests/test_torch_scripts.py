@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 import tpu2dgs
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs_torch.eval import (capk_probe, fidelity_probe, soak_train, strip_balance_probe,
                                 train_bench)
 from tpu2dgs_torch.train.loop import TrainConfig

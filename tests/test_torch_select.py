@@ -11,11 +11,9 @@ import pytest
 import torch
 
 from tests.test_tiled import _cam, _random_scene
-from tests.test_torch_core import to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
-from tpu2dgs.raster import binning as jbin
+from tests.test_torch_core import jax_compact, jax_pack, jax_preprocess, to_torch
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import pallas_backend as jpb
-from tpu2dgs.raster import preprocess as jpre
 from tpu2dgs.raster import select_kernel as jsel
 from tpu2dgs_torch.raster import select_kernel as tsel
 
@@ -42,9 +40,9 @@ def _exact_case():
     """Exact-only level on real records: one parent of depth-ordered
     records (the L2 input) with _REC_PADS past the visible count."""
     w, h = 256, 128
-    splats = jpre.preprocess(*_random_scene(n=300, seed=9), _cam(w, h), w, h, 3)
-    comp = jbin.compact_visible(splats, 300)
-    rec = np.asarray(jpb.pack_records(splats))[np.asarray(comp.perm)]
+    splats = jax_preprocess(*_random_scene(n=300, seed=9), _cam(w, h), w, h, 3)
+    comp = jax_compact(splats, 300)
+    rec = np.asarray(jax_pack(splats))[np.asarray(comp.perm)]
     chans = rec.T[None].copy()                         # (1, 24, 300)
     nv = int(comp.num_visible)
     chans[0, :, nv:] = np.asarray(jpb._REC_PADS, np.float32)[:, None]

@@ -9,7 +9,7 @@ import numpy as np
 
 from tests.test_tiled import _cam, _random_scene
 from tests.test_torch_core import port_cam, to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import binning as jbin
 from tpu2dgs.raster import pallas_backend as jpb
 from tpu2dgs.raster import preprocess as jpre

@@ -36,7 +36,7 @@ import torch
 from tests.test_data import _make_colmap_dataset
 from tests.test_tiled import _random_scene, _settings
 from tests.test_torch_cli import TRAIN_FLAGS
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.parallel.sharded import make_mesh
 from tpu2dgs.raster.api import render as jrender

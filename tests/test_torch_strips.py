@@ -32,11 +32,9 @@ import pytest
 import torch
 
 from tests.test_tiled import _cam, _random_scene, _settings
-from tests.test_torch_core import to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
-from tpu2dgs.raster import binning as jbin
+from tests.test_torch_core import jax_compact, jax_pack, jax_preprocess, to_torch
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import pallas_backend as jpb
-from tpu2dgs.raster import preprocess as jpre
 from tpu2dgs_torch.raster import api as tapi
 from tpu2dgs_torch.raster import binning as tbin
 from tpu2dgs_torch.raster import cuda_backend as tcb
@@ -63,9 +61,9 @@ def scene():
     the port's side."""
     arrays = _random_scene(n=150, seed=41)
     n = arrays[0].shape[0]
-    splats = jpre.preprocess(*arrays, _cam(W, H), W, H, 3)
-    comp = jbin.compact_visible(splats, n)
-    rec = jpb.pack_records(splats)
+    splats = jax_preprocess(*arrays, _cam(W, H), W, H, 3)
+    comp = jax_compact(splats, n)
+    rec = jax_pack(splats)
     ts = SplatScreen(*(to_torch(a) for a in splats))
     tcomp = tbin.compact_visible(ts, n)
     cap = min(CAPS["tile_capacity"], n)

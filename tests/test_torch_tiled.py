@@ -22,10 +22,9 @@ import pytest
 import torch
 
 from tests.test_tiled import _cam, _random_scene, _settings, KEYS
-from tests.test_torch_core import port_cam, to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_core import jax_preprocess, port_cam, to_torch
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.raster import binning as jbin
-from tpu2dgs.raster import preprocess as jpre
 from tpu2dgs.raster import select_kernel as jsel
 from tpu2dgs.raster import tiled as jtiled
 from tpu2dgs.raster.api import render as jrender
@@ -43,7 +42,7 @@ NAMES = ["xyz", "scaling", "rotation", "opacity", "features", "mean2d_offset"]
 def _same_splats(w, h, n, seed, **kw):
     """The JAX package's preprocess output and the same values as the
     port's SplatScreen."""
-    js = jpre.preprocess(*_random_scene(n=n, seed=seed, **kw), _cam(w, h), w, h, 3)
+    js = jax_preprocess(*_random_scene(n=n, seed=seed, **kw), _cam(w, h), w, h, 3)
     return js, SplatScreen(*(to_torch(np.asarray(a)) for a in js))
 
 
@@ -153,7 +152,8 @@ def test_select_rows_bit_equal():
 def _tiled_outputs():
     w, h = 72, 56  # not multiples of 16: edge tiles are cropped
     scene = _random_scene(n=200, seed=1)
-    jout = jrender(_cam(w, h), _settings(w, h, "tiled", **TILED), *scene, jnp.asarray(BG))
+    jout = jax.jit(lambda *a: jrender(_cam(w, h), _settings(w, h, "tiled", **TILED), *a,
+                                      jnp.asarray(BG)))(*scene)
     tout = tapi.render(port_cam(w, h), tapi.RasterSettings(w, h, backend="tiled", **TILED),
                        *map(to_torch, scene), to_torch(BG), device="cpu")
     return jout, tout
@@ -186,9 +186,10 @@ def _tiled_grads():
         return (xp.sum(out["render"] ** 2) + xp.sum(out["rend_dist"])
                 + 0.1 * xp.sum(out["rend_normal"] * out["surf_normal"]))
 
-    gj = jax.grad(lambda *a: loss(jrender(_cam(w, h), _settings(w, h, "tiled", **caps),
-                                          *a[:5], jnp.asarray(bg), mean2d_offset=a[5]), jnp),
-                  argnums=tuple(range(6)))(*scene, jnp.asarray(offset))
+    gj = jax.jit(jax.grad(
+        lambda *a: loss(jrender(_cam(w, h), _settings(w, h, "tiled", **caps), *a[:5],
+                                jnp.asarray(bg), mean2d_offset=a[5]), jnp),
+        argnums=tuple(range(6))))(*scene, jnp.asarray(offset))
     targs = [to_torch(a).requires_grad_() for a in (*scene, offset)]
     out = tapi.render(port_cam(w, h), tapi.RasterSettings(w, h, backend="tiled", **caps),
                       *targs[:5], to_torch(bg), mean2d_offset=targs[5], device="cpu")
@@ -205,7 +206,8 @@ def test_rasterize_rows_at_an_offset():
     caps = dict(TILED, tile_capacity=64)
     jset = _settings(w, h, "tiled", **caps)
     tset = tapi.RasterSettings(w, h, backend="tiled", **caps)
-    jimg, jmaps, jaux = jtiled.rasterize_rows(js, jset, jnp.asarray(BG), 2, 2, return_aux=True)
+    jimg, jmaps, jaux = jax.jit(lambda sp, bg: jtiled.rasterize_rows(
+        sp, jset, bg, 2, 2, return_aux=True))(js, jnp.asarray(BG))
     timg, tmaps, taux = ttiled.rasterize_rows(ts, tset, to_torch(BG), 2, 2, return_aux=True)
     assert timg.shape == (32, 80, 3)
     np.testing.assert_allclose(timg.numpy(), np.asarray(jimg), rtol=1e-4, atol=1e-4)

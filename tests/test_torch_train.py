@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from tests.test_torch_core import to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tests.test_train import _gt_scene, _orbit_camera
 from tpu2dgs.model import splats as jsplats
 from tpu2dgs.train import loop as jloop

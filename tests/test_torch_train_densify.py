@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from tests.test_torch_core import to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_train import FIELDS, _np
 from tests.test_torch_train_model import _assert_same_model, _stats_pair
 from tpu2dgs.model import densify as jdensify

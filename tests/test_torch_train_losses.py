@@ -1,16 +1,14 @@
 """tpu2dgs_torch's training losses against tpu2dgs's on the same numpy
-images, and the gradient of the photometric loss (through SSIM):
-allclose 1e-6 where the arithmetic is elementwise float32, 1e-5 for SSIM
-(sums of 121 products in another order)."""
+images: allclose 1e-6 where the arithmetic is elementwise float32, 1e-5
+for PSNR. The losses through SSIM and the photometric loss's gradient are
+tests/test_torch_train_losses_ssim.py's."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from tests.test_torch_core import to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_train import _close
 from tpu2dgs.train import losses as jlosses
 from tpu2dgs_torch.train import losses as tlosses
@@ -25,6 +23,8 @@ def _images():
     return a, b
 
 
+# name: (the loss of a module, tolerance); those through SSIM are in
+# tests/test_torch_train_losses_ssim.py, where the same test takes them
 LOSSES = {
     "l1": (lambda m, a, b: m.l1_loss(a, b), 1e-6),
     "l2": (lambda m, a, b: m.l2_loss(a, b), 1e-6),
@@ -34,19 +34,16 @@ LOSSES = {
     "distortion": (lambda m, a, b: m.distortion_loss(a[:1]), 1e-6),
     "psnr": (lambda m, a, b: m.psnr(a, b), 1e-5),
 }
+THROUGH_SSIM = ["photometric", "ssim"]
 
 
-@pytest.mark.parametrize("name", sorted(LOSSES))
-def test_loss_matches_jax(name):
+def loss_matches_jax(name):
     fn, tol = LOSSES[name]
     a, b = _images()
     _close(fn(tlosses, to_torch(a), to_torch(b)), fn(jlosses, jnp.asarray(a), jnp.asarray(b)),
            tol, name)
 
 
-def test_ssim_gradient_matches_jax():
-    a, b = _images()
-    gj = jax.grad(lambda x: jlosses.photometric_loss(x, jnp.asarray(b), 0.2)[0])(jnp.asarray(a))
-    x = to_torch(a).requires_grad_()
-    gt, = torch.autograd.grad(tlosses.photometric_loss(x, to_torch(b), 0.2)[0], x)
-    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-4, atol=1e-8)
+@pytest.mark.parametrize("name", sorted(set(LOSSES) - set(THROUGH_SSIM)))
+def test_loss_matches_jax(name):
+    loss_matches_jax(name)

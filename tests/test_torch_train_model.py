@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_core import to_torch
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_train import FIELDS, _close, _np
 from tpu2dgs.model import densify as jdensify
 from tpu2dgs.model import knn as jknn

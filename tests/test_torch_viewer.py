@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_threads import jax_compile_cache, one_torch_thread  # noqa: F401  (autouse)
 from tpu2dgs.core import cameras as jcam
 from tpu2dgs.viewer import modes as jmodes
 from tpu2dgs.viewer import network_gui as jgui
