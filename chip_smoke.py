@@ -56,22 +56,29 @@ main path:
            K3 1 a rank and setting. It measures no scaling.
   cli      the shell training set written to disk as a COLMAP dataset,
            cli.train from a fresh start with its ground truth kept on the
-           host, a resume from its checkpoint at full width, cli.render
-           and cli.metrics on the model directory, and eval.summary on the
+           host, a resume from its checkpoint at full width, cli.render at
+           capacities where no counter fires and at cli.train's default
+           capacity flags, which heal (the same PNGs and depth TIFFs byte
+           for byte, K1 3 / K2 1 launches a render, re-renders included),
+           cli.metrics on the model directory, and eval.summary on the
            directory that holds it (its row holds cli.metrics' PSNR and
            SSIM).
   mesh     inside cli, on the model it trained: cli.render without
-           --skip_mesh, a bounded TSDF at the default --mesh_res 1024 and a
-           contracted one (--unbounded --mesh_res 512 --cull_views 1); the
-           four mesh PLYs read back, and the bounded mesh held against the
-           shell it was trained to show.
+           --skip_mesh at the default capacity flags, which heal, a
+           bounded TSDF at the default --mesh_res 1024 from median depth
+           (--depth_ratio 1) and a contracted one from mean depth
+           (--unbounded --mesh_res 512 --cull_views 1); the four mesh PLYs
+           read back, and the bounded mesh held against the shell it was
+           trained to show.
   viewer   inside cli, on the model it trained: cli.view's request
            (NetworkGUI.serve of ModelView.render) answers a remote viewer
            on loopback (a client thread of this process): each of the six
            render modes 3 times, a message without a camera (no image), 24
-           RGB frames around the orbit; every frame's bytes equal to the render of its camera
-           put through its mode and cut to bytes directly on the card, K1 3
-           / K2 1 launches a frame; host ms a frame from request to reply.
+           RGB frames around the orbit, at the default capacity flags,
+           which heal; every frame's bytes equal to the render of its
+           camera at the capacities ModelView ended at, put through its
+           mode and cut to bytes directly on the card, K1 3 / K2 1
+           launches a render; host ms a frame from request to reply.
            Trainer(gui=) on the shell training set for 40 steps with a
            client asking for frames, pausing training (the step must hold
            still) and resuming it: K1 3 / K2 1 / K3 1 launches a step and
@@ -87,9 +94,9 @@ main path:
            served-view and training-step times beside the cuda backend's;
            select_rows against its plain version.
   quality_gate  eval.quality_gate at its defaults (2000 iterations at
-           128x128 through cli.train, cli.render with the mesh and
-           cli.metrics): K1 3 / K2 1 / K3 1 launches per step, and the
-           gate's verdict, which must pass.
+           128x128 through cli.train, cli.render with the mesh from the
+           training flags, healing, and cli.metrics): K1 3 / K2 1 / K3 1
+           launches per step, and the gate's verdict, which must pass.
   scripts  the JAX repo's scripts as the port's entry points, each called
            as a function: eval.train_bench at its defaults (the Trainer's
            capacities settled, then 300 timed steps at 800x800 with 2^17
@@ -119,7 +126,9 @@ splats phase alone, `python3 chip_smoke.py ranks` the build and the ranks
 phase alone (`ranks_nccl` on a host with two GPUs: its viewer and cli runs on
 cuda:0 and cuda:1 over NCCL), `python3 chip_smoke.py viewer` the build, the cli phase
 without the mesh and the viewer phase, `python3 chip_smoke.py scripts` the
-same and then the scripts phase; none of them prints a verdict.
+same and then the scripts phase, `python3 chip_smoke.py mesh_depth` the
+build, the cli phase and its bounded mesh at mean and median depth over
+whole and cut lists; none of them prints a verdict.
 """
 
 from __future__ import annotations
@@ -162,7 +171,8 @@ from tpu2dgs_torch.model import splats as splats_lib
 from tpu2dgs_torch.native import build as native
 from tpu2dgs_torch.native import knn as native_knn
 from tpu2dgs_torch.parallel import distributed, rehearsal, sharded
-from tpu2dgs_torch.raster import api, binning, cuda_backend, preprocess, select_kernel
+from tpu2dgs_torch.raster import (api, binning, capacity, cuda_backend, preprocess,
+                                  select_kernel)
 from tpu2dgs_torch.train import checkpoint, loop
 from tpu2dgs_torch.viewer import modes as viewer_modes
 from tpu2dgs_torch.viewer import network_gui
@@ -234,7 +244,13 @@ CLI_RESUME_STEPS = 10
 # eval.geometry.chamfer_distance), the voxel size the JAX package's quality
 # gate meshes at (scripts/quality_gate.py:180). Completeness and Chamfer are
 # reported, not gated: three views on the equator see neither the caps nor
-# the fourth quadrant.
+# the fourth quadrant. The bounded run meshes at median depth, the bounded
+# recipe of the README's quick start and of eval/dtu_eval.py and
+# eval/tnt_eval.py; the unbounded run at the default mean depth. Over whole
+# lists the mean depth of a model this young (22 steps, opacities near
+# create_from_pcd's 0.1) takes in the back of the shell
+# (`python3 chip_smoke.py mesh_depth` measures both depths).
+MESH_BOUNDED_FLAGS = ["--depth_ratio", "1"]
 MESH_RES_UNBOUNDED = 512
 MESH_MIN_FACES = 10_000
 MESH_ACCURACY = 0.02
@@ -1059,21 +1075,23 @@ def mesh_quality(verts: np.ndarray, faces: np.ndarray, shell: np.ndarray) -> dic
     return {"accuracy": acc, "completeness": comp, "chamfer": chamfer}
 
 
-def mesh(model_dir: Path, caps: list[str], n_train: int, it: int):
+def mesh(model_dir: Path, n_train: int, it: int):
     """The mesh main path on the command-line phase's model: cli.render
-    without --skip_mesh, bounded at the default --mesh_res 1024, then
-    unbounded at MESH_RES_UNBOUNDED with --cull_views 1. Each run renders the
-    training views once at SH degree 0 (K1 3 and K2 1 launches each) and
-    nothing else. Returns the launches of both runs and their seconds."""
+    without --skip_mesh at its default capacity flags, which heal, bounded
+    at the default --mesh_res 1024 with MESH_BOUNDED_FLAGS, then unbounded
+    at MESH_RES_UNBOUNDED with --cull_views 1. Each run renders the training views at SH degree
+    0 and nothing else, K1 3 and K2 1 launches a render (a view, or a view
+    rendered again at grown capacities). Returns the launches of both runs
+    and their seconds."""
     out_dir = model_dir / "train" / f"ours_{it}"
     runs, launches = {}, Counter()
     t_phase = time.perf_counter()
     for name, extra, extract_fn, fuse in (
-            ("bounded", [], "extract_mesh_bounded", (tsdf, "integrate")),
+            ("bounded", MESH_BOUNDED_FLAGS, "extract_mesh_bounded", (tsdf, "integrate")),
             ("unbounded", ["--unbounded", "--mesh_res", str(MESH_RES_UNBOUNDED),
                            "--cull_views", "1"], "extract_mesh_unbounded",
              (extract, "_fuse_world_slab"))):
-        watch, extractors, volumes = Stopwatch(), [], []
+        watch, extractors, volumes, healers = Stopwatch(), [], [], []
         native.LAUNCHES.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1083,6 +1101,7 @@ def mesh(model_dir: Path, caps: list[str], n_train: int, it: int):
             stack.enter_context(record_calls(extract.GaussianExtractor, "reconstruction",
                                              extractors))
             stack.enter_context(record_calls(tsdf, "make_volume", volumes))
+            stack.enter_context(record_calls(capacity.CapacityHealer, "render", healers))
             for owner, fn, label in (
                     (extract.GaussianExtractor, "reconstruction", "reconstruction"),
                     (extract.GaussianExtractor, extract_fn, "extract"), (*fuse, "fusion"),
@@ -1090,17 +1109,19 @@ def mesh(model_dir: Path, caps: list[str], n_train: int, it: int):
                     (extract, "post_process_mesh", "post_process"),
                     (extract, "write_mesh_ply", "write_ply")):
                 stack.enter_context(watch.watch(owner, fn, label))
-            cli_render.main(["-m", str(model_dir), "--skip_train", "--skip_test", "--quiet",
-                             *caps, *extra])
+            caps = cli_render.main(["-m", str(model_dir), "--skip_train", "--skip_test",
+                                    "--quiet", *extra])
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         got = dict(native.LAUNCHES)
         launches.update(got)
-        want = {"select_values": 3 * n_train, "blend_tiles": n_train}
-        if got != want:
+        healer = healers[0][0][0]
+        want = {"select_values": 3 * healer.renders, "blend_tiles": healer.renders}
+        if got != want or healer.views != n_train or healer.truncated:
             fail(f"mesh {name}: launched {got}, want {want} (the {n_train} training views "
-                 "rendered once each, no backward)")
+                 f"and {healer.rerenders} re-renders, no backward); truncated "
+                 f"{healer.truncated}")
 
         stem = "fuse" if name == "bounded" else "fuse_unbounded"
         counts = {}
@@ -1126,8 +1147,10 @@ def mesh(model_dir: Path, caps: list[str], n_train: int, it: int):
         ex = extractors[0][0][0]
         voxels = (math.prod(volumes[0][0][1]) if name == "bounded"
                   else MESH_RES_UNBOUNDED ** 3)
-        runs[name] = {"seconds": seconds, "total_seconds": total_s, "voxels": voxels,
-                      "launches": got, "peak_device_bytes": peak - base,
+        runs[name] = {"flags": extra, "seconds": seconds, "total_seconds": total_s,
+                      "voxels": voxels,
+                      "launches": got, "rerenders": healer.rerenders, "caps": caps,
+                      "cap_events": healer.events, "peak_device_bytes": peak - base,
                       "peak_allocated_bytes": peak,
                       "host_maxrss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
                       "radius": ex.radius, "center": ex.center.tolist(), **counts}
@@ -1144,6 +1167,56 @@ def mesh(model_dir: Path, caps: list[str], n_train: int, it: int):
           "unbounded": MESH_RES_UNBOUNDED}, "shell_points": SHELL_POINTS,
           "mesh_samples": MESH_SAMPLES, "accuracy_limit": MESH_ACCURACY, "runs": runs})
     return launches, time.perf_counter() - t_phase
+
+
+def mesh_depth(model_dir: Path, n_train: int, it: int):
+    """`python3 chip_smoke.py mesh_depth`: what sets the bounded mesh's
+    accuracy on the command-line phase's model. The bounded mesh at mean and
+    at median depth (--depth_ratio 0 and 1), each at whole lists (the
+    default flags, which heal) and at cut lists (the capacities the model
+    trained at, healing off). For each: accuracy, completeness, Chamfer and
+    faces of the post-processed mesh; the share of pixels with alpha > 0.5;
+    the mean |depth difference| where alpha > 0.5 between mean and median
+    depth and between whole and cut lists, and the share of those pixels
+    whose mean depth lies more than MESH_ACCURACY behind the median. The
+    model's opacities (sigmoid) at the 10th, 50th and 90th percentile."""
+    ply = model_dir / "point_cloud" / f"iteration_{it}" / "point_cloud.ply"
+    opacity = torch.sigmoid(splats_lib.load_ply(str(ply)).params.opacity[:, 0]).float().cpu()
+    shell = synthetic.shell_surface_points(SHELL_POINTS, seed=0)
+    post = model_dir / "train" / f"ours_{it}" / "fuse_post.ply"
+    ways, maps = {}, {}
+    for lists in ("whole", "cut"):
+        for ratio in (0, 1):
+            extractors = []
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(record_calls(extract.GaussianExtractor, "reconstruction",
+                                                 extractors))
+                if lists == "cut":
+                    stack.enter_context(mock.patch.object(capacity, "grow_caps",
+                                                          lambda *a, **k: []))
+                caps = cli_render.main(["-m", str(model_dir), "--skip_train", "--skip_test",
+                                        "--quiet", "--depth_ratio", str(ratio)])
+            ex = extractors[0][0][0]
+            maps[lists, ratio] = (torch.stack([d[0] for d in ex.depthmaps]),
+                                  torch.stack([a[0] for a in ex.alphamaps]))
+            verts, faces = extract.read_mesh_ply(str(post))
+            ways[f"{lists}_depth_ratio_{ratio}"] = {
+                "caps": caps, "faces": len(faces), **mesh_quality(verts, faces, shell),
+                "alpha_over_half": float((maps[lists, ratio][1] > 0.5).float().mean())}
+
+    def gap(a, b) -> dict:
+        mask = (maps[a][1] > 0.5) & (maps[b][1] > 0.5)
+        d = (maps[a][0] - maps[b][0])[mask]
+        return {"mean_abs": float(d.abs().mean()),
+                "share_behind": float((d > MESH_ACCURACY).float().mean())}
+
+    emit({"phase": "mesh_depth", "train_views": n_train, "ways": ways,
+          "opacity_q10_q50_q90": torch.quantile(opacity, torch.tensor([0.1, 0.5, 0.9])).tolist(),
+          "mean_against_median": {lists: gap((lists, 0), (lists, 1))
+                                  for lists in ("whole", "cut")},
+          "whole_against_cut": {f"depth_ratio_{r}": gap(("whole", r), ("cut", r))
+                                for r in (0, 1)}})
+    return Counter(), 0.0
 
 
 def viewer_message(cam, mode: int = 0, train: bool = True) -> dict:
@@ -1179,13 +1252,16 @@ def launches_since(before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in native.LAUNCHES.items() if v != before.get(k, 0)}
 
 
-def served_frames(model_dir: Path, caps: list[str], it: int):
+def served_frames(model_dir: Path, it: int):
     """cli.view's request (NetworkGUI.serve of ModelView.render) on the
-    model: each mode MODE_FRAMES times from one pose, a message without a
-    camera, ORBIT_FRAMES RGB frames around the orbit. Every frame's bytes
-    must equal the render of the same camera put through the same mode and
-    cut to bytes directly, and launch K1 3 and K2 1 times. Returns (report, launches)."""
-    view, _ = cli_view.open_model(["-m", str(model_dir), "--iteration", str(it), *caps])
+    model, at the default capacity flags, which heal: each mode MODE_FRAMES
+    times from one pose, a message without a camera, ORBIT_FRAMES RGB
+    frames around the orbit. Every frame's bytes must equal the render of
+    the same camera, at the capacities ModelView ended at, put through the
+    same mode and cut to bytes directly, and launch K1 3 and K2 1 times a
+    render (a frame, or a frame rendered again at grown capacities).
+    Returns (report, launches)."""
+    view, _ = cli_view.open_model(["-m", str(model_dir), "--iteration", str(it)])
     items = network_gui.RENDER_ITEMS
     poses = [synthetic.shell_camera(2 * np.pi * (0.13 + k / ORBIT_FRAMES), W, H)
              for k in range(ORBIT_FRAMES)]
@@ -1196,7 +1272,7 @@ def served_frames(model_dir: Path, caps: list[str], it: int):
 
     gui = network_gui.NetworkGUI("127.0.0.1", 0)
     gui.init()
-    cams, per_request = [], []
+    cams, per_request, renders = [], [], []
     watch = Stopwatch()
     try:
         client = rehearsal.ViewerClient(gui.listener.getsockname()[1], messages,
@@ -1207,19 +1283,22 @@ def served_frames(model_dir: Path, caps: list[str], it: int):
         with record_calls(cli_view.ModelView, "render", cams), \
                 watch.watch(cli_view.ModelView, "render", "render"):
             for _ in messages:
-                before = dict(native.LAUNCHES)
+                before, renders_before = dict(native.LAUNCHES), view.healer.renders
                 gui.serve(view.render, view.verify, view.metrics)
                 per_request.append(launches_since(before))
+                renders.append(view.healer.renders - renders_before)
         launches = dict(native.LAUNCHES)
         finish_client(client, "cli.view")
     finally:
         gui.close()
 
-    want = {"select_values": 3, "blend_tiles": 1}
-    for (pose, _), got in zip(asked, per_request):
-        if got != (want if pose is not None else {}):
-            fail(f"cli.view: a request launched {got}, want {want} a frame and nothing "
-                 "for a message without a camera")
+    for (pose, _), got, n in zip(asked, per_request, renders):
+        want = {"select_values": 3 * n, "blend_tiles": n} if n else {}
+        if got != want or (n == 0) != (pose is None):
+            fail(f"cli.view: a request launched {got} in {n} renders, want K1 3 and K2 1 a "
+                 "render, and nothing for a message without a camera")
+    if view.healer.truncated:
+        fail(f"cli.view: frames truncated at the ceilings: {view.healer.truncated}")
     if client.items != items:
         fail(f"cli.view: render items {client.items}")
 
@@ -1255,6 +1334,8 @@ def served_frames(model_dir: Path, caps: list[str], it: int):
     render_ms = [1e3 * s for s in watch.seconds["render"]]
     report = {
         "frames": len(cams), "launches": launches, "camera_max_abs_err": cam_err,
+        "rerenders": view.healer.rerenders, "cap_events": view.healer.events,
+        "caps": {k: view.settings[k] for k in capacity.RENDER_CAPS},
         "frame_ms_by_mode": {items[m]: spread(client.ms[m * MODE_FRAMES:(m + 1) * MODE_FRAMES])
                              for m in range(len(items))},
         "frame_ms_orbit_rgb": spread(client.ms[n_modes + 1:]),
@@ -1412,13 +1493,13 @@ def lpips_check(model_dir: Path, out_dir: Path, it: int) -> dict:
             "cli_metrics": {"per_view": per_view, "results": results}}
 
 
-def viewer(model_dir: Path, out_dir: Path, caps: list[str], it: int):
+def viewer(model_dir: Path, out_dir: Path, it: int):
     """The viewer main path on the command-line phase's model (cli.view's
     frames), beside it Trainer(gui=) on the shell training set, and LPIPS.
     Returns the launches of the served frames and the trainer, and the
     phase's seconds."""
     t0 = time.perf_counter()
-    served, served_launches = served_frames(model_dir, caps, it)
+    served, served_launches = served_frames(model_dir, it)
     t1 = time.perf_counter()
     training, train_launches = gui_training()
     t2 = time.perf_counter()
@@ -1461,13 +1542,36 @@ def read_jsonl(path: Path) -> list[dict]:
         return [json.loads(line) for line in f]
 
 
-def cli(out_dir: Path, with_mesh: bool = True):
+def render_heals(model_dir: Path, flags: list[str]) -> dict:
+    """cli.render --skip_mesh at `flags`: the caps it returned, its
+    healer's views, renders, re-renders, growth events and the counters
+    that still fired at their ceilings."""
+    healers = []
+    with record_calls(capacity.CapacityHealer, "render", healers):
+        caps = cli_render.main(["-m", str(model_dir), "--skip_mesh", "--quiet", *flags])
+    healer = healers[0][0][0]
+    return {"caps": caps, "views": healer.views, "renders": healer.renders,
+            "rerenders": healer.rerenders, "events": healer.events,
+            "truncated": healer.truncated}
+
+
+def written_files(model_dir: Path, it: int) -> dict[str, bytes]:
+    """The bytes of every PNG and depth TIFF cli.render wrote."""
+    return {str(f.relative_to(model_dir)): f.read_bytes()
+            for split in ("train", "test")
+            for sub, pattern in (("renders", "*.png"), ("vis", "*.tiff"))
+            for f in sorted((model_dir / split / f"ours_{it}" / sub).glob(pattern))}
+
+
+def cli(out_dir: Path, mesh_fn=mesh, with_viewer: bool = True):
     """The command-line main path at full width: a COLMAP dataset of the
     shell training set on disk, cli.train from a fresh start (spherical
     harmonics degree 0, as every run starts, ground truth over its device
     budget), a resume from its checkpoint stamped with step 3000 (degree 3,
-    distortion loss on), cli.render and cli.metrics; then the mesh phase
-    (unless `with_mesh` is false) and the viewer phase on its model. Returns
+    distortion loss on), cli.render (at capacities where no counter fires,
+    then at the default flags, which must heal to the same files) and
+    cli.metrics; then `mesh_fn` (the mesh phase, none if None) and, unless
+    `with_viewer` is false, the viewer phase on its model. Returns
     the launches of all of it and the two phases' seconds."""
     scene_dir, model_dir = out_dir / "scene", out_dir / "model"
     for d in (scene_dir, model_dir):
@@ -1571,17 +1675,31 @@ def cli(out_dir: Path, with_mesh: bool = True):
              f"had {int(resumed.model.num_live())}")
 
     # -- render and metrics ---------------------------------------------------------
+    # At capacities where no counter fires, then at cli.train's default
+    # capacity flags, which heal: the same files, byte for byte.
+    room = render_heals(model_dir, [f"--{k}={v}" for k, v in GT_CAPS.items()])
+    if room["rerenders"] or room["truncated"] or room["caps"] != GT_CAPS:
+        fail(f"cli.render at {GT_CAPS}: a counter fired: {room}")
+    room_files = written_files(model_dir, last)
     native.LAUNCHES.clear()
     t0 = time.perf_counter()
     with watch.watch(Scene, "load", "render_scene_load"), \
             watch.watch(splats_lib, "load_ply", "render_load_ply"):
-        cli_render.main(["-m", str(model_dir), "--skip_mesh", "--quiet", *caps])
+        healed = render_heals(model_dir, [])
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
+    healed_files = written_files(model_dir, last)
     got = dict(native.LAUNCHES)
     launches.update(got)
-    if got != {"select_values": 3 * CLI_VIEWS, "blend_tiles": CLI_VIEWS}:
-        fail(f"cli.render: {CLI_VIEWS} views launched {got}")
+    if healed["views"] != CLI_VIEWS or got != {"select_values": 3 * healed["renders"],
+                                               "blend_tiles": healed["renders"]}:
+        fail(f"cli.render: {healed['views']} views and {healed['rerenders']} re-renders "
+             f"launched {got}, want K1 3 and K2 1 a render")
+    differ = [name for name in room_files if healed_files.get(name) != room_files[name]]
+    if healed["truncated"] or differ or set(healed_files) != set(room_files):
+        fail(f"cli.render at the default flags: truncated {healed['truncated']}; files "
+             f"differing from those at {GT_CAPS}: {differ}")
+    render_heal = {**healed, "files_equal": len(room_files)}
 
     from PIL import Image
 
@@ -1594,8 +1712,7 @@ def cli(out_dir: Path, with_mesh: bool = True):
     # the held-out view as cli.render read it from the dataset
     held_out = Scene.load(str(scene_dir), resolution=1, eval_split=True,
                           shuffle=False).test_cameras[0]
-    settings = api.RasterSettings(W, H, **{k: v for k, v in CAPS.items()
-                                           if k != "grad_pack_capacity"})
+    settings = api.RasterSettings(W, H, **healed["caps"])
     with torch.no_grad():
         ref = api.render(held_out.arrays(), settings, p.xyz, torch.exp(p.scaling), p.rotation,
                          torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p),
@@ -1623,12 +1740,18 @@ def cli(out_dir: Path, with_mesh: bool = True):
     summary_check(out_dir, model_dir, results)
 
     mesh_s = 0.0
-    if with_mesh:
-        mesh_launches, mesh_s = mesh(model_dir, caps, n_train, last)
+    if mesh_fn is not None:
+        mesh_launches, mesh_s = mesh_fn(model_dir, n_train, last)
         launches.update(mesh_launches)
-    viewer_launches, viewer_s = viewer(model_dir, out_dir, caps, last)
-    launches.update(viewer_launches)
+    viewer_s = 0.0
+    if with_viewer:
+        viewer_launches, viewer_s = viewer(model_dir, out_dir, last)
+        launches.update(viewer_launches)
 
+    # cli.render's seconds less its loads: its renders, re-renders included,
+    # and the files it writes
+    render_host_s = (render_s - sum(watch.seconds["render_scene_load"])
+                     - sum(watch.seconds["render_load_ply"]))
     steps_ms = [1e3 * s / n for s, n in ((sum(watch.seconds["train_block"]), first),
                                          (sum(watch.seconds["train_block_resumed"]),
                                           CLI_RESUME_STEPS))]
@@ -1637,8 +1760,9 @@ def cli(out_dir: Path, with_mesh: bool = True):
                       "render": render_s, "metrics": metrics_s, "load_ply": load_ply_s,
                       **watch.totals()},
           "step_ms_fresh_host_gt": steps_ms[0], "step_ms_resumed_sh3": steps_ms[1],
-          "render_ms_per_view": 1e3 * (render_s - sum(watch.seconds["render_scene_load"])
-                                       - sum(watch.seconds["render_load_ply"])) / CLI_VIEWS,
+          "render_ms_per_view": 1e3 * render_host_s / CLI_VIEWS,
+          "render_ms_per_render": 1e3 * render_host_s / healed["renders"],
+          "render_heal": render_heal,
           "logged_l1": l1, "logged_total": total, "results": results,
           "png_max_abs_err": png_err, "depth_max_abs_err": depth_err,
           "num_live": int(reloaded.num_live())})
@@ -1920,6 +2044,7 @@ def quality_gate_phase(out_dir: Path):
         fail(f"quality_gate: {len(steps)} steps, want {iters}")
     check_calls("quality_gate steps", steps, STEP_LAUNCHES)
     emit({"phase": "quality_gate", "seconds": seconds, "launches": launches,
+          "psnr_db": report["psnr_db"], "render_capacities": report["render_capacities"],
           "train_seconds": sum(watch.seconds["train"]),
           "steps_per_s": iters / sum(watch.seconds["train"]),
           "mesh_seconds": sum(watch.seconds["mesh"]), "report": report, "card": card()})
@@ -2700,11 +2825,14 @@ def main() -> None:
                     RANKS_NCCL_CLI_STEPS)
         return
     if sys.argv[1:] == ["viewer"]:
-        cli(out_dir, with_mesh=False)  # the cli phase and the viewer phase on its model, no verdict
+        cli(out_dir, mesh_fn=None)  # the cli phase and the viewer phase on its model, no verdict
         return
     if sys.argv[1:] == ["scripts"]:
-        cli(out_dir, with_mesh=False)  # its model for eval.summary, then the scripts phase
+        cli(out_dir, mesh_fn=None)  # its model for eval.summary, then the scripts phase
         scripts_phase()
+        return
+    if sys.argv[1:] == ["mesh_depth"]:  # the cli phase, then its bounded mesh four ways, no verdict
+        cli(out_dir, mesh_fn=mesh_depth, with_viewer=False)
         return
     settings = api.RasterSettings(W, H, **CAPS)
     bench, selects, (rec3, counts, nty) = bench_inputs(settings)

@@ -316,37 +316,46 @@ def _crowded(out, dst, reps=16):
 
 
 def test_render_at_the_gate_demand_capacities(trained, tmp_path):
-    """cli.render renders at its flags' capacities: on a model whose cuda
-    tiles hold more splats than the least tile capacity (128), its renders at
-    --tile_capacity 8 drop what the lists cannot hold; at the flags that
-    eval.quality_gate.demand_flags reads from the model's demand they equal
-    the renders at capacities with room for every list."""
+    """cli.render heals its capacities: on a model whose cuda tiles hold
+    more splats than the least tile capacity (128), its renders at
+    --bin_capacity 8 --tile_capacity 8 equal, byte for byte, the renders at
+    capacities with room for every list, and the caps it returns are at
+    least the largest demand of any view, read from the overflow counters
+    at those room capacities."""
     from PIL import Image
 
     from tpu2dgs_torch.data.scene import Scene
-    from tpu2dgs_torch.eval import quality_gate as tq
+    from tpu2dgs_torch.raster import api as tapi
 
     _, out, _ = trained
     model_dir = _crowded(out, str(tmp_path / "crowded"))
+    room = dict(bin_capacity=4096, tile_capacity=4096, col_capacity=32768)
+    views, returned = {}, {}
+    for name, caps in (("room", [f"--{k}={v}" for k, v in room.items()]),
+                       ("tight", ["--bin_capacity", "8", "--tile_capacity", "8"])):
+        returned[name] = tcli_render.main(["-m", model_dir, "--quiet", "--skip_mesh",
+                                           "--skip_train", *caps], device="cpu")
+        with Image.open(os.path.join(model_dir, "test", "ours_6", "renders", "00000.png")) as im:
+            views[name] = np.asarray(im)
+    np.testing.assert_array_equal(views["tight"], views["room"])
+    assert returned["room"] == room
+
     args = tcfg.load_cfg_args(model_dir)
     scene = Scene.load(args.source_path, resolution=args.resolution, eval_split=True,
                        shuffle=False)
     model = tsplats.load_ply(os.path.join(model_dir, "point_cloud", "iteration_6",
                                           "point_cloud.ply"), device="cpu")
-    demand = tq.demand_flags(model, scene.train_cameras + scene.test_cameras,
-                             torch.device("cpu"))
-    assert demand[::2] == ["--backend", "--bin_capacity", "--tile_capacity", "--col_capacity"]
-    assert demand[1] == "cuda" and int(demand[5]) > 128
-    views = {}
-    for name, caps in (("room", ["--bin_capacity", "4096", "--tile_capacity", "4096"]),
-                       ("tight", ["--bin_capacity", "8", "--tile_capacity", "8"]),
-                       ("demand", demand)):
-        tcli_render.main(["-m", model_dir, "--quiet", "--skip_mesh", "--skip_train", *caps],
-                         device="cpu")
-        with Image.open(os.path.join(model_dir, "test", "ours_6", "renders", "00000.png")) as im:
-            views[name] = np.asarray(im)
-    assert not np.array_equal(views["tight"], views["room"])
-    np.testing.assert_array_equal(views["demand"], views["room"])
+    p = model.params
+    for cam in scene.test_cameras:
+        with torch.no_grad():
+            demand = tapi.render(cam.arrays("cpu"), tapi.RasterSettings(
+                cam.width, cam.height, **room), p.xyz, torch.exp(p.scaling), p.rotation,
+                torch.sigmoid(p.opacity[:, 0]), tsplats.features(p), torch.zeros(3),
+                live=model.live, device="cpu")
+        assert float(demand["tile_count_max"]) > 128
+        for kwarg in room:
+            assert returned["tight"][kwarg] >= float(demand[kwarg.replace("capacity",
+                                                                          "count_max")])
 
 
 def test_train_tiled_heals_a_tile_overflow(trained, tmp_path):

@@ -231,7 +231,8 @@ def test_view_serves_one_request(tmp_path):
     """cli.view's request, `NetworkGUI.serve` with the loaded model's
     `ModelView.render`, on a seeded PLY through the plain versions: every
     mode's bytes equal the port's own render -> mode -> bytes for the same
-    camera; a zero resolution gets no image."""
+    camera, at the capacities the view ended at (CAPS cut this scene's
+    lists: its renders heal them); a zero resolution gets no image."""
     w, h = 32, 24
     _, scene = synthetic.make_shell_scene(w, h, 512, device="cpu")
     it_dir = tmp_path / "point_cloud" / "iteration_7"
@@ -269,13 +270,15 @@ def test_view_serves_one_request(tmp_path):
         if msg["resolution_x"] == 0:
             assert image is None
             continue
-        settings = tapi.RasterSettings(w, h, scale_modifier=msg["scaling_modifier"], **CAPS)
+        settings = tapi.RasterSettings(w, h, scale_modifier=msg["scaling_modifier"],
+                                       **{k: view.settings[k] for k in CAPS})
         with torch.no_grad():
             pkg = tapi.render(cam.arrays("cpu"), settings, *args, torch.zeros(3),
                               live=model.live, device="cpu")
         want = tgui.image_to_bytes(tmodes.render_net_image(pkg, ITEMS, msg["render_mode"]))
         assert image == want, ITEMS[msg["render_mode"]]
     assert out["replies"][0][0] != out["replies"][-1][0]  # the scaling modifier is applied
+    assert view.healer.rerenders > 0 and view.healer.events[0][0] == "view 0"
 
 
 def test_trainer_serves_frames_and_pauses():

@@ -84,9 +84,10 @@ class RasterParams:
     """Rasterizer knobs (no reference counterpart).
 
     The capacity knobs are INITIAL values — the Trainer's adaptive cap
-    growth raises any of them whose overflow counter fires (train/loop.py
-    OVERFLOW_CAP_OF). tile_px, coarse_tiles and chunk belong to the tiled
-    backend (chunk to the oracle too); row_balance and xfer_capacity to
+    growth, and cli.render's and cli.view's renders, raise any of them
+    whose overflow counter fires (raster/capacity.py). tile_px,
+    coarse_tiles and chunk belong to the tiled backend (chunk to the
+    oracle too); row_balance and xfer_capacity to
     multi-device rendering: those two flags parse, as the JAX package's do,
     and nothing on one device reads them."""
 

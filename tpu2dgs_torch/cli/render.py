@@ -12,8 +12,13 @@ again with diffuse colour (SH degree 0), fuses the depth maps into a TSDF on
 the device (bounded: fuse.ply, or contracted with --unbounded:
 fuse_unbounded.ply), optionally culls faces seen by fewer than --cull_views
 views, and keeps the --num_cluster largest clusters (*_post.ply), all under
-<model>/train/ours_<iteration>/. Runs on the GPU (`main(argv,
-device="cpu")` from Python runs the kernels' plain versions).
+<model>/train/ours_<iteration>/. The capacity flags are initial values:
+a view whose lists overflow is rendered again at grown capacities, as the
+Trainer heals its own (raster/capacity.py), and the capacities carry over
+to the views after it; a view still truncated at the growth ceilings is
+written and reported. Runs on the GPU (`main(argv, device="cpu")` from
+Python runs the kernels' plain versions, and returns the capacities the
+run ended at).
 """
 
 from __future__ import annotations
@@ -84,6 +89,7 @@ def main(argv=None, device=None):
     from tpu2dgs_torch.data.scene import Scene
     from tpu2dgs_torch.model import splats as splats_lib
     from tpu2dgs_torch.raster.api import RasterSettings, render
+    from tpu2dgs_torch.raster.capacity import RENDER_CAPS, CapacityHealer
 
     parser = build_parser()
     args = cfg_lib.get_combined_args(parser, argv)
@@ -112,19 +118,19 @@ def main(argv=None, device=None):
     settings = RasterSettings(
         width=w, height=h, sh_degree=model_p.sh_degree,
         depth_ratio=pipe_p.depth_ratio, backend=raster_p.backend,
-        tile_px=raster_p.tile_px, coarse_tiles=raster_p.coarse_tiles,
-        bin_capacity=raster_p.bin_capacity, tile_capacity=raster_p.tile_capacity,
-        col_capacity=raster_p.col_capacity, chunk=raster_p.chunk,
+        tile_px=raster_p.tile_px, coarse_tiles=raster_p.coarse_tiles, chunk=raster_p.chunk,
     )
+    healer = CapacityHealer({k: getattr(raster_p, k) for k in RENDER_CAPS})
     p = model.params
     splat_args = (p.xyz, torch.exp(p.scaling), p.rotation,
                   torch.sigmoid(p.opacity[:, 0]), splats_lib.features(p))
 
-    def render_fn(cam, settings=settings):
-        return render(
-            cam.arrays(dev), settings, *splat_args, bg, live=model.live, device=dev,
+    def render_fn(cam, sh_degree=model_p.sh_degree):
+        return healer.render(lambda caps: render(
+            cam.arrays(dev), dataclasses.replace(settings, sh_degree=sh_degree, **caps),
+            *splat_args, bg, live=model.live, device=dev,
             convert_shs_python=pipe_p.convert_SHs_python,
-            compute_cov3d_python=pipe_p.compute_cov3D_python)
+            compute_cov3d_python=pipe_p.compute_cov3D_python), cam.image_name)
 
     def export_set(cameras, name):
         base = os.path.join(model_p.model_path, name, f"ours_{it}")
@@ -160,9 +166,14 @@ def main(argv=None, device=None):
         print(f"render path saved at {traj_dir}")
 
     if not args.skip_mesh:
-        diffuse = dataclasses.replace(settings, sh_degree=0)
-        extract_mesh(args, scene.train_cameras, lambda cam: render_fn(cam, diffuse),
+        extract_mesh(args, scene.train_cameras, lambda cam: render_fn(cam, sh_degree=0),
                      os.path.join(model_p.model_path, "train", f"ours_{it}"), dev)
+    if healer.events:
+        print(f"rendered at {healer.caps} after {healer.rerenders} re-renders of "
+              f"{healer.views} views")
+    for key, (views, most) in healer.truncated.items():
+        print(f"{views} of {healer.views} views written truncated: {key} up to {most:.6g}")
+    return dict(healer.caps)
 
 
 def extract_mesh(args, cameras, render_fn, out_dir: str, device) -> None:

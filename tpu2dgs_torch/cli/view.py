@@ -7,8 +7,10 @@ the reference view.py.
 Loads <model>/point_cloud/iteration_<N>/point_cloud.ply (default: the
 latest) onto the GPU and answers viewer requests over the network_gui
 protocol forever: each request is rendered at the client's resolution and
-scaling modifier (the cuda backend: K1 three times, K2 once a frame), put
-through the chosen render mode and sent back as u8 bytes. Waiting for a
+scaling modifier (the cuda backend: K1 three times, K2 once a render), put
+through the chosen render mode and sent back as u8 bytes. The capacity
+flags are initial values: a frame whose lists overflow is rendered again at
+grown capacities, which later frames keep (raster/capacity.py). Waiting for a
 client blocks on the listening socket. `main(argv, device="cpu")` from
 Python serves through the kernels' plain versions.
 """
@@ -26,6 +28,7 @@ from tpu2dgs_torch.cli import config as cfg_lib
 from tpu2dgs_torch.cli.render import latest_iteration
 from tpu2dgs_torch.model import splats as splats_lib
 from tpu2dgs_torch.raster.api import RasterSettings, render
+from tpu2dgs_torch.raster.capacity import CapacityHealer
 from tpu2dgs_torch.viewer.network_gui import NetworkGUI
 
 
@@ -45,12 +48,14 @@ def build_parser() -> argparse.ArgumentParser:
 class ModelView:
     """A loaded model rendered for the viewer at whatever resolution and
     scaling modifier a request asks for, under no_grad: `render` is what
-    `NetworkGUI.serve` calls for a frame."""
+    `NetworkGUI.serve` calls for a frame. Its capacities heal
+    (`self.healer`, which grows them in `self.settings`)."""
 
     def __init__(self, model: splats_lib.SplatModel, settings: dict, bg: torch.Tensor,
                  verify: str = ""):
         self.model = model
         self.settings = settings   # RasterSettings fields but width, height, scale_modifier
+        self.healer = CapacityHealer(settings)
         self.bg = bg
         self.verify = verify       # the string sent back with every frame
         self.metrics = {"#": int(model.num_live())}
@@ -60,10 +65,10 @@ class ModelView:
 
     @torch.no_grad()
     def render(self, cam, width: int, height: int, scaling_modifier: float) -> dict:
-        settings = RasterSettings(width=width, height=height,
-                                  scale_modifier=float(scaling_modifier), **self.settings)
-        return render(cam, settings, *self.splat_args, self.bg, live=self.model.live,
-                      device=self.bg.device)
+        return self.healer.render(lambda caps: render(
+            cam, RasterSettings(width=width, height=height,
+                                scale_modifier=float(scaling_modifier), **caps),
+            *self.splat_args, self.bg, live=self.model.live, device=self.bg.device))
 
 
 def open_model(argv=None, device=None) -> tuple[ModelView, argparse.Namespace]:

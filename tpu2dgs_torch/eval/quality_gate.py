@@ -24,8 +24,9 @@ The thresholds are the JAX gate's: PSNR >= 19 dB, Chamfer <= 0.06, cross
 resets, capacity growth) allows Chamfer <= 0.12 and asks for >= 6000 final
 points. Calibrated at 2000 iterations and 128 px. `--backend` picks the
 training backend (default cuda, the kernels), and cli.render renders and
-meshes on it at capacities sized to the trained model's demand. Prints one
-JSON line. Runs on
+meshes on it from the capacity flags training started from, healing them
+as the Trainer does; the report's render_capacities are those it ended
+at. Prints one JSON line. Runs on
 the GPU; `main(..., device="cpu")` from Python runs the kernels' plain
 versions.
 """
@@ -52,6 +53,8 @@ SOAK_POINTS_MIN = 6000
 N_VIEWS = 24
 FOV = 0.9
 GT_CAPS = dict(bin_capacity=1024, tile_capacity=512)
+# The capacity flags of cli.train and cli.render: initial values both heal.
+CAP_FLAGS = ["--bin_capacity", "1024", "--tile_capacity", "512"]
 # Capacities of the demand probes before the cross-render.
 PROBE_CAPS = dict(bin_capacity=16384, tile_capacity=8192, col_capacity=61440)
 
@@ -158,32 +161,6 @@ def r128(x) -> int:
 
 
 @torch.no_grad()
-def demand_flags(model, cams, device, backend: str = "cuda") -> list[str]:
-    """cli.render's flags for `backend` at capacities of its largest demand
-    over `cams`, read from its overflow counters (*_count_max) at
-    PROBE_CAPS. cli.render renders at its flags' capacities, and their
-    defaults truncate the lists of a trained model (ROADMAP.md §3)."""
-    from tpu2dgs_torch.model import splats as splats_lib
-    from tpu2dgs_torch.raster.api import RasterSettings, render
-
-    p = model.params
-    args = (p.xyz, torch.exp(p.scaling), p.rotation, torch.sigmoid(p.opacity[:, 0]),
-            splats_lib.features(p))
-    bg = torch.zeros(3, device=device)
-    demand = {"bin_capacity": 128, "tile_capacity": 128, "col_capacity": 128}
-    for cam in cams:
-        settings = RasterSettings(width=cam.width, height=cam.height, backend=backend,
-                                  **PROBE_CAPS)
-        out = render(cam.arrays(device), settings, *args, bg, live=model.live, device=device)
-        for kwarg in demand:
-            count = out.get(kwarg.replace("capacity", "count_max"))  # tiled has no columns
-            if count is not None:
-                demand[kwarg] = max(demand[kwarg], r128(float(count)))
-    return ["--backend", backend,
-            *(a for kwarg, v in demand.items() for a in (f"--{kwarg}", str(v)))]
-
-
-@torch.no_grad()
 def cross_psnr(model, cam, res: int, device) -> float:
     """PSNR between the model's view through the cuda backend and through
     the tiled one. Under truncation their tile lists differ legitimately
@@ -255,17 +232,14 @@ def main(out_dir=None, iters: int = 2000, res: int = 128, soak: bool = False,
         "-s", src, "-m", out, "--eval", "--iterations", str(iters),
         "--save_iterations", str(iters), "--test_iterations", str(iters),
         "--densify_from_iter", "100", "--densify_until_iter", str(int(iters * 0.8)),
-        "--densification_interval", "50",
-        "--bin_capacity", "1024", "--tile_capacity", "512",
+        "--densification_interval", "50", *CAP_FLAGS,
         "--backend", backend, "--quiet", "--max_capacity", "131072", "--disable_viewer",
     ] + schedule, device=dev)
     trained = load_ply(os.path.join(out, "point_cloud", f"iteration_{iters}",
                                     "point_cloud.ply"), device=dev)
-    # the renders and the mesh on the training backend, at capacities with
-    # room for every list of every view
-    flags = demand_flags(trained, [cam for cam, _ in orbit_views(res)], dev, backend)
-    cli_render.main([
-        "-m", out, "--quiet", "--skip_train", *flags,
+    # the renders and the mesh on the training backend
+    render_caps = cli_render.main([
+        "-m", out, "--quiet", "--skip_train", "--backend", backend, *CAP_FLAGS,
         "--voxel_size", "0.02", "--sdf_trunc", "0.06", "--depth_trunc", "5.0",
         "--num_cluster", "1",
     ], device=dev)
@@ -292,7 +266,7 @@ def main(out_dir=None, iters: int = 2000, res: int = 128, soak: bool = False,
         "ssim": round(ssim, 4),
         "chamfer": round(float(chamfer), 4),
         "mesh_vertices": int(len(verts)),
-        "render_capacities": {k.lstrip("-"): int(v) for k, v in zip(flags[2::2], flags[3::2])},
+        "render_capacities": render_caps,
         "backend_cross_psnr_db": round(cross, 2),
         "final_points": final_points,
         "thresholds": thresholds,

@@ -80,35 +80,21 @@ from tpu2dgs_torch.model import optim as optim_lib
 from tpu2dgs_torch.model import splats as splats_lib
 from tpu2dgs_torch.parallel import distributed, sharded
 from tpu2dgs_torch.parallel.distributed import Mesh
+from tpu2dgs_torch.raster import capacity
 from tpu2dgs_torch.raster.api import RasterSettings, render
 from tpu2dgs_torch.raster.cuda_backend import BX, _round_group
 from tpu2dgs_torch.train import losses
 from tpu2dgs_torch.viewer import network_gui
 
-# Backend capacity-overflow diagnostics (api.render output keys) and the
-# RasterSettings knob each one is healed by. The xfer keys belong to the
-# multi-device splat exchange and appear only when a backend reports them.
+# Backend capacity-overflow diagnostics (api.render output keys): those
+# raster/capacity.py's OVERFLOW_CAP_OF heals, and vis_overflow, which it
+# does not. The xfer keys belong to the multi-device splat exchange and
+# appear only when a backend reports them.
 OVERFLOW_KEYS = ("tile_overflow_frac", "bin_overflow_frac",
                  "col_overflow_frac", "grad_pack_overflow_frac",
                  "vis_overflow", "tile_count_max", "bin_count_max",
                  "col_count_max", "grad_pack_max",
                  "xfer_overflow_frac", "xfer_count_max")
-OVERFLOW_CAP_OF = {
-    "tile_overflow_frac": "tile_capacity",
-    "bin_overflow_frac": "bin_capacity",
-    "col_overflow_frac": "col_capacity",
-    "grad_pack_overflow_frac": "grad_pack_capacity",
-    "xfer_overflow_frac": "xfer_capacity",
-}
-# True demand maxima reported by the backend: growth sizes the new cap
-# directly from these instead of climbing a 1.5x ladder.
-OVERFLOW_DEMAND_OF = {
-    "tile_overflow_frac": "tile_count_max",
-    "bin_overflow_frac": "bin_count_max",
-    "col_overflow_frac": "col_count_max",
-    "grad_pack_overflow_frac": "grad_pack_max",
-    "xfer_overflow_frac": "xfer_count_max",
-}
 
 # Under a mesh: the longest rank 0 lets the other ranks wait for its next
 # control word while the viewer holds training paused, well under
@@ -336,14 +322,9 @@ class Trainer:
         # densification boundary raises the corresponding cap before the
         # next step, so a scene whose depth complexity exceeds the
         # configured caps heals itself instead of truncating its lists
-        # until someone reads the counters. The growth ceilings are the
-        # JAX package's, kept so both packages heal alike.
-        self.max_caps = {
-            "tile_capacity": 16_384, "bin_capacity": 20_480,
-            "col_capacity": 61_440, "grad_pack_capacity": 1 << 22,
-            "xfer_capacity": 262_144,
-            **(max_caps or {}),
-        }
+        # until someone reads the counters (raster/capacity.py's rule and
+        # ceilings).
+        self.max_caps = {**capacity.MAX_CAPS, **(max_caps or {})}
         self.cap_growth_events: list[tuple[int, str, int]] = []
         self.last_densify: Optional[densify_lib.DensifyInfo] = None
         self._cam_arrays = [c.arrays(self.device) for c in cameras]
@@ -486,21 +467,11 @@ class Trainer:
         return int(val)
 
     def _maybe_grow_caps(self, it: int, metrics: dict) -> None:
-        """Close the capacity-overflow loop: any nonzero overflow fraction
-        raises its cap to the reported demand plus 25%, at least 1.5x
-        (128-rounded), up to the ceiling. Reads the counters back to the
-        host: called only at cadence boundaries."""
-        for key, kwarg in OVERFLOW_CAP_OF.items():
-            v = metrics.get(key)
-            if v is None or float(v) <= 0.0:
-                continue
-            cur = self._current_cap(kwarg)
-            demand = metrics.get(OVERFLOW_DEMAND_OF[key])
-            want = int(float(demand) * 1.25) if demand is not None else int(cur * 1.5)
-            new = min(-(-max(want, int(cur * 1.5)) // 128) * 128, self.max_caps[kwarg])
-            if new > cur:
-                self.raster_kwargs[kwarg] = new
-                self.cap_growth_events.append((it, kwarg, new))
+        """Close the capacity-overflow loop (capacity.grow_caps). Reads the
+        counters back to the host: called only at cadence boundaries."""
+        for kwarg, new in capacity.grow_caps(self.raster_kwargs, metrics, self.max_caps,
+                                             self._current_cap):
+            self.cap_growth_events.append((it, kwarg, new))
 
     def _profile(self, it: int) -> None:
         if it == self.profile_steps[0] and self._profiler is None:
